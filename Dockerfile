@@ -1,14 +1,13 @@
-# STRique-TPU container recipe (the reference ships a Dockerfile too,
+# strique_tpu container recipe (the reference ships a Dockerfile too,
 # reference Dockerfile:1).
 #
-#   docker build -t strique-tpu .
-#   docker run --rm strique-tpu strique --help
+#   docker build -t strique .
+#   docker run --rm strique strique --help
 #
-# The image ships the CPU backend (jax[cpu]): every pipeline runs —
-# kernels execute via the XLA scan / Pallas-interpret paths — which is
-# what the test tier and the golden verification use.  On a TPU VM,
-# install jax[tpu] instead (see docs/install.md) or mount this image's
-# code into a TPU-enabled base image.
+# The image ships the CPU backend (jax[cpu]): every pipeline runs through
+# the plain lax scans, which is what the test tier and the golden
+# verification use.  For an NVIDIA GPU, start from a CUDA base image
+# with nvcc and install JAX with its CUDA plugin (see docs/install.md).
 #
 # The build finishes by reproducing the reference's golden integration
 # run (index + count on the bundled c9orf72 read, with --mod_model,

@@ -1,6 +1,7 @@
-// Native host runtime for strique-tpu.
+// Native host runtime for strique_tpu.
 //
-// The TPU owns the DP compute path (Pallas kernels); this library owns the
+// The device owns the DP compute path (native/strique_cuda.cu on a GPU, lax
+// elsewhere); this library owns the
 // host-side hot loops around it, mirroring where the reference kept native
 // code (reference src/align_raw.h, src/score_distance.h):
 //
@@ -306,7 +307,7 @@ void preprocess_read_lut(const double* raw, int64_t n, const double* model,
 // ---------------------------------------------------------------------------
 // CPU semi-global affine aligner (fallback / oracle)
 // ---------------------------------------------------------------------------
-// Same semantics as the Pallas kernel and ops.align: free end gaps on the
+// Same semantics as the device kernels and ops.align: free end gaps on the
 // signal axis, matrix preference M > V > H, extension over opening on ties,
 // leftmost end column.  Returns score; fills pos[m] with the nearest signal
 // index per template element (reference __detect_range__ argmin semantics)

@@ -1,7 +1,8 @@
-"""STRique-TPU: TPU-native nanopore raw-signal STR detection framework.
+"""strique_tpu: nanopore raw-signal STR detection on a JAX accelerator.
 
-A from-scratch jax/XLA/Pallas reimplementation of the capabilities of
-giesselmann/STRique.  See README.md for architecture and usage.
+A from-scratch JAX reimplementation of the capabilities of
+giesselmann/STRique, with CUDA kernels for the GPU hot path.  See
+README.md for architecture and usage.
 """
 
 __version__ = "0.1.0"

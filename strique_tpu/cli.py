@@ -30,18 +30,6 @@ def cmd_index(argv) -> int:
     return 0
 
 
-def _enable_persistent_cache(jax) -> None:
-    """Persistent kernel cache: repeat invocations skip the Mosaic/XLA
-    compiles (~3-90 s per shape on a TPU backend) entirely."""
-    cache_dir = os.environ.get(
-        "JAX_COMPILATION_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "strique_tpu", "jax"))
-    try:
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-    except Exception:
-        pass
-
-
 def cmd_count(argv) -> int:
     parser = argparse.ArgumentParser(description="STR detection in raw nanopore data")
     parser.add_argument("f5Index", help="Fast5 index")
@@ -54,7 +42,8 @@ def cmd_count(argv) -> int:
     parser.add_argument("--t", type=int, default=1, help="Host IO worker threads (fast5 reads; also per-read mode workers)")
     parser.add_argument("--batch", type=int, default=None,
                         help="Reads per batched device invocation (1 disables batching; "
-                             "default: 64 on TPU, 8 elsewhere, x data-parallel degree)")
+                             "default: enough reads to cover the GPU's SMs, 8 on CPU, "
+                             "x data-parallel degree)")
     parser.add_argument("--devices", default="auto",
                         help="Data-parallel device count: 'auto' shards read batches over "
                              "all local accelerator devices; an integer caps it; 1 runs single-device")
@@ -82,8 +71,7 @@ def cmd_count(argv) -> int:
 
     import jax
 
-    _enable_persistent_cache(jax)
-
+    from . import platform
     from .detect.detector import RepeatDetector
     from .detect.writer import OutputWriter, processed_ids
     from .parallel.dispatcher import run_pipeline
@@ -95,6 +83,7 @@ def cmd_count(argv) -> int:
     # reference scripts/STRique.py:778-802)
     rank = init_distributed(coordinator=args.coordinator,
                             num_processes=args.num_hosts, process_id=args.host_id)
+    platform.enable_compile_cache()
     world = jax.process_count()
 
     if args.devices == "auto":
@@ -105,11 +94,13 @@ def cmd_count(argv) -> int:
     mesh = None
     if n_dev > 1:
         mesh = make_mesh({"data": n_dev}, jax.local_devices()[:n_dev])
-        log(f"Main: Sharding read batches over {n_dev} {jax.default_backend()} devices.",
+        log(f"Main: Sharding read batches over {n_dev} {platform.platform()} devices.",
             LogLevel.Info)
     batch_size = args.batch
     if batch_size is None:
-        batch_size = 64 if jax.default_backend() == "tpu" else 8
+        batch_size = platform.default_batch(jax.local_devices())
+        print(f"strique count: {batch_size} reads per device batch "
+              f"({jax.local_devices()[0].device_kind})", file=sys.stderr)
     if mesh is not None and batch_size > 1:
         batch_size = (batch_size + n_dev - 1) // n_dev * n_dev
 
@@ -291,8 +282,8 @@ def cmd_warmup(argv) -> int:
     """Pre-compile the device pipelines for a config into the persistent
     kernel cache, so the first real ``count`` run starts at full speed.
 
-    The reference has no compile cost; a cold TPU run otherwise pays
-    ~3-90 s per (bucket, pipeline) shape on first contact with each
+    The reference has no compile cost; a cold run otherwise pays one
+    compile per (bucket, pipeline) shape on first contact with each
     read-length bucket.  Warmup drives one synthetic full-path batch per
     target x strand x jit bucket (flank alignment, bounds, Viterbi, and
     the mod pipeline when --mod_model is given) and reports per-shape
@@ -322,7 +313,8 @@ def cmd_warmup(argv) -> int:
     import jax
     import numpy as np
 
-    _enable_persistent_cache(jax)
+    from . import platform
+    platform.enable_compile_cache()
     from .detect.counter import (RepeatCounter, reverse_complement,
                                  signal_bucket)
     from .parallel.mesh import make_mesh
@@ -332,7 +324,7 @@ def cmd_warmup(argv) -> int:
     else:
         n_dev = min(max(int(args.devices), 1), len(jax.local_devices()))
     mesh = make_mesh({"data": n_dev}, jax.local_devices()[:n_dev]) if n_dev > 1 else None
-    batch = args.batch or (64 if jax.default_backend() == "tpu" else 8)
+    batch = args.batch or platform.default_batch(jax.local_devices())
     counter = RepeatCounter(args.model, mod_model_file=args.mod_model,
                             align_config=config["align"], hmm_config=config["HMM"],
                             mesh=mesh)
@@ -414,7 +406,7 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(
         prog="strique",
-        description="STRique-TPU: a TPU-native nanopore raw signal repeat detection pipeline",
+        description="STRique: nanopore raw signal repeat detection on a JAX accelerator",
         usage="strique <command> [<args>]\n\nCommands:\n"
               "   index      Index batch(es) of bulk-fast5 or tar archived single fast5\n"
               "   count      Count single read repeat expansions\n"

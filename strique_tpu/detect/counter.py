@@ -1,6 +1,6 @@
 """Per-target repeat detection engine.
 
-TPU-first equivalent of the reference ``repeatCounter``
+Equivalent of the reference ``repeatCounter``
 (reference scripts/STRique.py:505-618): host-side preprocessing
 (median filter, morphology, normalization scalars — exact float64
 NumPy), device-side DP kernels (flank alignment + HMM Viterbi) over
@@ -12,7 +12,7 @@ Viterbi decode and result packing — costing a single packed D2H.  With a
 ``jax.sharding.Mesh`` the identical pipeline runs under ``shard_map``
 over the mesh's ``data`` axis: reads shard across chips, model tensors
 replicate, and per-read results are independent, so multi-chip output is
-bitwise identical to single-device (the TPU-native replacement for the
+bitwise identical to single-device (the device-mesh replacement for the
 reference's fork-based worker pool, scripts/STRique.py:733-830).
 """
 from __future__ import annotations
@@ -116,20 +116,24 @@ def pad_bucket(n: int, minimum: int = 2048) -> int:
     return base * 2
 
 
+# the bucket grid's rounding steps (signal columns, then time steps): kept
+# as they were when kernels needed them, so the compiled shape set and
+# every result stay the same
+BUCKET_COLUMNS = 128
+BUCKET_STEPS = 512
+
+
 def signal_bucket(n: int) -> int:
     """The padded signal length a read of ``n`` samples compiles under.
 
     Single source of truth for the jit-bucket grid: the pad_bucket grid
-    rounded up to the align kernel's column chunk and the Viterbi
-    kernel's time chunk.  Streaming schedulers group reads by this value
-    so every group hits an existing compiled pipeline.
+    rounded up to multiples of ``BUCKET_COLUMNS`` and ``BUCKET_STEPS``.
+    Streaming schedulers group reads by this value so every group hits
+    an existing compiled pipeline.
     """
-    from ..ops.align_pallas import CHUNK as ALIGN_CHUNK
-    from ..ops.viterbi_pallas import CHUNK_T
-
     npad = pad_bucket(int(n))
-    npad = (npad + ALIGN_CHUNK - 1) // ALIGN_CHUNK * ALIGN_CHUNK
-    return (npad + CHUNK_T - 1) // CHUNK_T * CHUNK_T
+    npad = (npad + BUCKET_COLUMNS - 1) // BUCKET_COLUMNS * BUCKET_COLUMNS
+    return (npad + BUCKET_STEPS - 1) // BUCKET_STEPS * BUCKET_STEPS
 
 
 @dataclass
@@ -195,7 +199,6 @@ class RepeatCounter:
         self.split = _os.environ.get("STRIQUE_SPLIT", "1") != "0"
         self._dev_cache: dict = {}
         self._pool = None  # lazy host-preprocessing thread pool
-        self._uploader = None  # lazy single-thread H2D dispatcher
         # the scheduler's async-submit thread and a main-thread retry can
         # drive one counter concurrently: serialize lazy pool creation and
         # pipeline compilation (re-entrant — pipeline builders consult the
@@ -246,38 +249,19 @@ class RepeatCounter:
                 )
         return self._dev_cache[key]
 
-    def _padded_hmm(self, chm):
-        """Cache lane-padded tensors for the Pallas Viterbi kernel."""
-        from ..ops.viterbi_pallas import PaddedHMM
-
-        key = ("pallas", id(chm))
+    def _factored(self, chm):
+        """Cache the factored staging of an HMM's transitions, or None."""
+        key = ("factored", id(chm))
         with self._init_lock:
             if key not in self._dev_cache:
-                self._dev_cache[key] = PaddedHMM(chm)
-        return self._dev_cache[key]
-
-    def _factored_scan(self, chm):
-        """Cache the factored staging for the XLA-scan kernel, or None."""
-        key = ("fscan", id(chm))
-        with self._init_lock:
-            if key not in self._dev_cache:
-                import os
-
                 import jax.numpy as jnp
 
                 staged = None
-                if (getattr(chm, "factored", None) is not None
-                        and os.environ.get("STRIQUE_DENSE_VITERBI") != "1"):
+                if getattr(chm, "factored", None) is not None:
                     spec, weights = viterbi_ops.stage_factored(chm.factored)
                     staged = (spec, tuple(jnp.asarray(w) for w in weights))
                 self._dev_cache[key] = staged
         return self._dev_cache[key]
-
-    @staticmethod
-    def _use_pallas() -> bool:
-        import jax
-
-        return jax.default_backend() == "tpu"
 
     def _prep_pool(self):
         """Thread pool for per-read host preprocessing (lazy, GIL-released
@@ -290,16 +274,6 @@ class RepeatCounter:
                 self._pool = ThreadPoolExecutor(max_workers=min(os.cpu_count() or 1, 8))
         return self._pool
 
-    def _upload_pool(self):
-        """Single-thread uploader: serializes H2D + dispatch in submit
-        order off the caller's thread."""
-        with self._init_lock:
-            if self._uploader is None:
-                from concurrent.futures import ThreadPoolExecutor
-
-                self._uploader = ThreadPoolExecutor(max_workers=1)
-        return self._uploader
-
     # -- fused device pipeline ----------------------------------------------
     @_with_init_lock
     def _pipeline(self, tc: TargetClassifier, use_buf: bool):
@@ -310,8 +284,8 @@ class RepeatCounter:
         segment bounds + QC gate -> repeat-segment roll -> Viterbi ->
         byte packing.  Under ``self.mesh`` the whole body runs in
         ``shard_map`` over the ``data`` axis (per-read work, no
-        cross-read communication), so each chip runs the same Pallas/XLA
-        kernels the single-device path uses.
+        cross-read communication), so each device runs the same kernels
+        the single-device path uses.
         """
         key = ("pipeline", id(tc), use_buf)
         if key in self._dev_cache:
@@ -327,11 +301,8 @@ class RepeatCounter:
         trim_prefix = len(tc.prefix_ext) - len(tc.prefix)
         trim_suffix = len(tc.suffix_ext) - len(tc.suffix)
         n_states = tc.repeat_hmm.n_states
-        if self._use_pallas():
-            ph = self._padded_hmm(tc.repeat_hmm)
-        else:
-            dev = self._device_hmm(tc.repeat_hmm)
-            fsw = self._factored_scan(tc.repeat_hmm)
+        dev = self._device_hmm(tc.repeat_hmm)
+        fsw = self._factored(tc.repeat_hmm)
 
         def tail(morph, flt, n_sigs):
             import jax.numpy as jnp
@@ -342,15 +313,7 @@ class RepeatCounter:
                 {k: suf[k] for k in ("score", "is_gap", "jpos")},
                 n_sigs, trim_prefix=trim_prefix, trim_suffix=trim_suffix)
             rolled = jax.vmap(lambda x, s: jnp.roll(x, -s))(flt, b["prefix_begin"])
-            if self._use_pallas():
-                from ..ops.viterbi_pallas import viterbi_pallas_batch
-
-                _, paths = viterbi_pallas_batch(rolled, b["seg_len"], ph)
-            elif fsw is not None:
-                _, paths = viterbi_ops.viterbi_scan_factored_batch(
-                    rolled, b["seg_len"], dev, fsw[0], fsw[1])
-            else:
-                _, paths = viterbi_ops.viterbi_scan_batch(rolled, b["seg_len"], *dev)
+            _, paths = viterbi_ops.viterbi_batch(rolled, b["seg_len"], dev, fsw)
             return pack_results(b, paths, n_states)
 
         if use_buf:
@@ -418,50 +381,6 @@ class RepeatCounter:
     def _data_parallel_degree(self) -> int:
         return int(self.mesh.shape["data"]) if self.mesh is not None else 1
 
-    def _ultra_long(self, tc: TargetClassifier, npad: int) -> bool:
-        """True when this bucket's one-pass pointer plane exceeds the HBM
-        budget — alignment must run the host-orchestrated checkpointed
-        two-pass, which dispatches its own jits and therefore cannot live
-        inside the jitted bounds pipeline."""
-        import jax
-
-        if jax.default_backend() != "tpu":
-            return False
-        from ..ops.align_pallas import _round_up, ptr_budget_bytes
-
-        mp = _round_up(max(len(tc.prefix_ext), len(tc.suffix_ext)) + 1, 128)
-        nd = _round_up(npad, 128) + mp
-        return nd * 8 * mp // 2 > ptr_budget_bytes()
-
-    def _bounds_eager(self, tc: TargetClassifier, buf, n_sigs_p):
-        """Eager twin of :meth:`_bounds_pipeline` for ultra-long buckets:
-        same math, but align runs through the two-pass long-read route
-        (bit-identical results; see ops.align.align_batch_longread).
-        Under a mesh the two-pass's 8-wide groups round-robin over the
-        mesh devices (pass-1 dispatches fan out before the first sync,
-        ops.align.align_longread_sharded) — ultra-long batches scale
-        with --devices like the standard path."""
-        import jax.numpy as jnp
-
-        from ..ops.bounds import segment_bounds
-        from .packed import pack_meta
-
-        params = self.align_params
-        t_pre = np.asarray(tc.prefix_ext, np.float32)
-        t_suf = np.asarray(tc.suffix_ext, np.float32)
-        morph = _unpack_morph_upload(jnp.asarray(buf))
-        n_dev = jnp.asarray(n_sigs_p)
-        devices = (list(self.mesh.devices.flat)
-                   if self.mesh is not None else None)
-        pre, suf = align_ops.align_fused_pair(morph, n_dev, t_pre, t_suf, params,
-                                              devices=devices)
-        b = segment_bounds(
-            {k: pre[k] for k in ("score", "is_gap", "jpos")},
-            {k: suf[k] for k in ("score", "is_gap", "jpos")},
-            n_dev, trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
-            trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
-        return pack_meta(b)
-
     # -- detection ---------------------------------------------------------
     def detect(self, target_name: str, raw_signal: np.ndarray, strand: str):
         """Count repeats in one read (reference ``repeatCounter.detect`` :581-616).
@@ -488,7 +407,7 @@ class RepeatCounter:
         ``preps``: optional per-read share tokens (dicts) — a read that
         intersects several targets preps ONCE and later batches reuse
         the cached morph/LUT/flt buffers (prep is ~85% of per-read host
-        cost, tools/profile_host.py; the reference re-preps per target,
+        cost; the reference re-preps per target,
         scripts/STRique.py:702-704).  Prep is target- and strand-
         independent, so sharing is exact.
         """
@@ -527,17 +446,13 @@ class RepeatCounter:
                 f"(> {MAX_FUSED_STATES}); using the two-phase host-bounds path.",
                 LogLevel.Info)
         have_native = native_lib.available()
-        if fusible and (self.split or self._ultra_long(tc, npad)):
-            # ultra-long buckets always take the split path: its bounds
-            # phase can run eagerly so the two-pass long-read alignment
-            # (host-orchestrated) slots in where the jitted pipeline can't
+        if fusible and self.split:
             return self._split_submit(tc, raws, n_sigs, n_sigs_p, npad, Bp,
                                       have_native, preps=preps)
         morphs = None
         if fusible and have_native:
             # single-pass native preprocessing writes straight into one
-            # byte-buffer H2D (the link costs ~12 ms/MB plus a flat
-            # per-transfer latency); layout per row:
+            # byte-buffer upload; layout per row:
             # [flt f32 bytes | LUT f32 bytes | morph u8]
             # Reads fan out over a small thread pool: the C ABI call
             # releases the GIL and each thread writes a disjoint buffer
@@ -558,29 +473,10 @@ class RepeatCounter:
             pipeline = self._pipeline(tc, use_buf=True)
             n_dev = jnp.asarray(n_sigs_p)
 
-            def _dispatch():
-                align_ops.count_issued_cells_estimate(
-                    Bp, npad, len(tc.prefix_ext), len(tc.suffix_ext))
-                packed = pipeline(jnp.asarray(buf), n_dev)
-                try:
-                    packed.copy_to_host_async()
-                except Exception:
-                    pass
-                return packed
-
-            import os
-
-            if os.environ.get("STRIQUE_ASYNC_UPLOAD") == "1":
-                # hand upload + dispatch to a single-thread uploader so the
-                # submit thread can prep the next batch sooner.  Opt-in:
-                # on the 2-core bench host it measured neutral-to-negative
-                # ({215, 217} vs 225 reads/s) -- the uploader thread
-                # contends with the prep pool -- but hosts with spare
-                # cores can profit (futures resolve in decode_bounds).
-                state = {"fused": self._upload_pool().submit(_dispatch)}
-            else:
-                state = {"fused": _dispatch()}
-            packed_dev = None
+            align_ops.count_issued_cells_estimate(
+                Bp, npad, len(tc.prefix_ext), len(tc.suffix_ext))
+            state = {"fused": pipeline(jnp.asarray(buf), n_dev)}
+            packed_dev = state["fused"]
         else:
             # host preprocessing (float64, exact scipy semantics); the
             # native C++ path is a single pass per read, NumPy otherwise
@@ -709,14 +605,10 @@ class RepeatCounter:
                 flts[i] = flt_n
                 flt32s[i] = flt_n.astype(np.float32)
                 _to_token(i, row, len(raw))
-        if self._ultra_long(tc, npad):
-            # two-pass align dispatches eagerly and self-counts its cells
-            bounds_dev = self._bounds_eager(tc, buf, n_sigs_p)
-        else:
-            fn = self._bounds_pipeline(tc)
-            align_ops.count_issued_cells_estimate(
-                Bp, npad, len(tc.prefix_ext), len(tc.suffix_ext))
-            bounds_dev = fn(jnp.asarray(buf), jnp.asarray(n_sigs_p))
+        fn = self._bounds_pipeline(tc)
+        align_ops.count_issued_cells_estimate(
+            Bp, npad, len(tc.prefix_ext), len(tc.suffix_ext))
+        bounds_dev = fn(jnp.asarray(buf), jnp.asarray(n_sigs_p))
         try:
             bounds_dev.copy_to_host_async()
         except Exception:
@@ -786,10 +678,7 @@ class RepeatCounter:
                     seg_lens[i] = bounds[i][6] - bounds[i][3]
             return bounds, paths, seg_lens
         if "fused" in state:
-            fused = state["fused"]
-            if hasattr(fused, "result"):  # async uploader future
-                fused = fused.result()
-            rows = unpack_results(np.asarray(fused)[:B],
+            rows = unpack_results(np.asarray(state["fused"])[:B],
                                   tc.repeat_hmm.n_states)
             for i, r in enumerate(rows):
                 bounds.append((r.ok, r.score_prefix, r.score_suffix,
@@ -939,12 +828,7 @@ class RepeatCounter:
         Bp = -(-B // step) * step
         lens_p = np.ones(Bp, dtype=np.int32)
         lens_p[:B] = lens
-        if self._use_pallas():
-            from ..ops.viterbi_pallas import CHUNK_T
-
-            tpad = max((int(lens.max()) + CHUNK_T - 1) // CHUNK_T * CHUNK_T, CHUNK_T)
-        else:
-            tpad = pad_bucket(int(lens.max()))
+        tpad = pad_bucket(int(lens.max()))
         obs = np.zeros((Bp, tpad), dtype=np.float32)
         for k, s in enumerate(segments):
             obs[k, : len(s)] = s
@@ -975,24 +859,13 @@ class RepeatCounter:
         # u16 packing wraps state indices >= 65536; such HMMs (only
         # reachable through the two-phase fallback) keep int32 paths
         pack_u16 = chm.n_states <= 65536
-        if self._use_pallas():
-            ph = self._padded_hmm(chm)
-        else:
-            dev = self._device_hmm(chm)
-            fsw = self._factored_scan(chm)
+        dev = self._device_hmm(chm)
+        fsw = self._factored(chm)
 
         def body(obs, lens):
             import jax.numpy as jnp
 
-            if self._use_pallas():
-                from ..ops.viterbi_pallas import viterbi_pallas_batch
-
-                _, paths = viterbi_pallas_batch(obs, lens, ph)
-            elif fsw is not None:
-                _, paths = viterbi_ops.viterbi_scan_factored_batch(
-                    obs, lens, dev, fsw[0], fsw[1])
-            else:
-                _, paths = viterbi_ops.viterbi_scan_batch(obs, lens, *dev)
+            _, paths = viterbi_ops.viterbi_batch(obs, lens, dev, fsw)
             if dt_np == 1:
                 return paths.astype(jnp.uint8)
             if pack_u16:

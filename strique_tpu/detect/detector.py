@@ -89,7 +89,7 @@ class RepeatDetector:
         """Process a batch of SAM lines with batched device calls.
 
         Reads are grouped by (target, strand) so each group runs through
-        the batched counter (one aligner invocation per 8 reads on TPU).
+        the batched counter (one aligner invocation per device batch).
         Returns one {'target_counts': ...}-or-None per input line.
         """
         return self.detect_batch_finish(self.detect_batch_submit(sam_lines, io_threads))

@@ -31,44 +31,16 @@ from collections import deque
 from ..utils.logging import LogLevel, log
 from .counter import signal_bucket
 
-# Close-time merge cost model (units: align-kernel column-time at width 32).
-# A batch of n reads at pad bucket ``b`` costs b x the per-call width factor
-# (measured ~0.17 + 0.026*B per call, tools/profile_align_cost.py) plus a
-# flat per-batch charge for dispatch overheads.  Kept modest: dispatch and
-# transfer latencies largely overlap under the depth-2 pipeline, so only
-# same-scale buckets should merge (padding short reads up to a much longer
-# bucket costs real align columns and upload bytes).
-FIXED_BATCH_COST = 8192
-
-
-def _wave_active() -> bool:
-    """True when the TPU wavefront align kernel is in use (its per-call
-    time is flat in width, changing the merge cost model)."""
-    try:
-        import jax
-
-        return (jax.default_backend() == "tpu"
-                and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col")
-    except Exception:
-        return False
-
-
 def _batch_cost(bucket: int, n: int) -> float:
-    if _wave_active():
-        from ..ops.align_pallas import BATCH_TPU_WAVE
+    """Padded DP cells of one batch of ``n`` reads at pad bucket ``bucket``.
 
-        # wave kernel: fixed-width calls with flat per-call cost; both
-        # flanks fuse into one row stream when that reduces the call
-        # count (align_fused_pair), so a batch of n reads costs
-        # ceil(2n/W) calls of ~bucket time each (halved so the unit
-        # stays ~bucket-per-flank, comparable with FIXED_BATCH_COST)
-        calls = -(-2 * n // BATCH_TPU_WAVE)
-        return bucket * calls / 2.0 + FIXED_BATCH_COST
-    full, rem = divmod(n, 32)
-    factor = float(full)
-    if rem:
-        factor += 0.17 + 0.026 * max(8, -(-rem // 8) * 8)
-    return bucket * factor + FIXED_BATCH_COST
+    Batches pad to a multiple of 8 reads (RepeatCounter.detect_submit),
+    and every read of a batch pays the bucket's full length, so the
+    padded cell count is proportional to ceil(n / 8) * 8 * bucket.  This
+    is counted from shapes alone; no per-batch time has been measured on
+    the GPU yet to weigh against it.
+    """
+    return float(-(-int(n) // 8) * 8) * float(bucket)
 
 
 def plan_merged_batches(groups: list[tuple[int, int]]) -> list[list[int]]:

@@ -12,8 +12,8 @@ and any later exit out of it, the weight decomposes into
 with C the cumulative chain cost.  One Viterbi step against this form
 costs O(S log S) — a few lane-shifted adds plus one prefix-max per
 chain — instead of the dense O(S^2) broadcast-add + max-reduce, and
-every op is a row op, so kernels can pack multiple reads into VPU
-sublanes.
+every op is a row op, so a kernel can hold one state per thread and
+needs no S x S matrix in the forward pass.
 
 ``factorize`` is mechanical: it infers chains from the silent
 subgraph's shape, computes entry/exit taps by max-plus closure over the
@@ -30,7 +30,7 @@ propagation at the cost of O(S^2) mass per step; this module removes
 that cost too, without reintroducing data-dependent silent hops.
 
 Runtime semantics (shared by the f64 verifier, the XLA scan kernel and
-the Pallas kernel; ``apply_factored`` below is the reference):
+the CUDA kernel; ``apply_factored`` below is the reference):
 
     out[v] = max( max_d  (score + diag_w_d)[v - d],
                   max_chain max_x (h_chain + exit_w_x)[v - x] )

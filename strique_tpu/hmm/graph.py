@@ -7,7 +7,7 @@ host-side compiler normalizes transition probabilities (as bake does),
 then *eliminates silent states exactly* by computing, for every pair of
 emitting states, the max-probability silent-only path between them
 (Viterbi/max-product semantics).  The result is a dense log-transition
-matrix over emitting states only — a static tensor the TPU Viterbi kernel
+matrix over emitting states only — a static tensor the device Viterbi
 scans over, with no data-dependent silent-state propagation at runtime.
 
 Eliminating silent states under max-product preserves both the optimal

@@ -1,17 +1,23 @@
-"""TPU semi-global affine alignment of a flank template into a raw signal.
+"""Semi-global affine alignment of a flank template into a raw signal.
 
 Replaces the reference's native SeqAn DP engine (reference
-src/align_raw.h:106-158, src/score_distance.h:115-122) with an
-XLA-compiled column scan:
+src/align_raw.h:106-158, src/score_distance.h:115-122).  Three
+implementations of one recurrence, with identical float32 value
+streams:
 
-  * the DP runs as ``lax.scan`` over signal positions (columns), carrying
-    the three Gotoh state vectors over template rows;
-  * the within-column vertical-gap recursion (sequential in a naive
-    formulation) is folded into an associative prefix-max
-    (``lax.cummax``), keeping every column fully vectorized on the VPU;
-  * compact traceback pointers (4 bits/cell in a uint8) stream to HBM;
-  * the warping positions of the template are recovered by an on-device
-    ``lax.while_loop`` traceback emitting one record per template element.
+  * :func:`align_scan` — the plain reference: ``lax.scan`` over signal
+    columns carrying the three Gotoh state vectors over template rows;
+    the within-column vertical-gap recursion is folded into an
+    associative prefix max (``lax.cummax``).  Pointers are a (N, M)
+    uint8 plane.  Runs wherever there is no CUDA kernel.
+  * :func:`align_diag` — the same DP swept over anti-diagonals, with
+    the column cummax carried as a running per-row value and 4-bit
+    pointer codes packed 8 steps per int32 word (NOTES.md, "wavefront
+    recurrence").  It is the executable specification of the CUDA
+    kernel's output layout, in plain ``lax``.
+  * the CUDA kernel behind :func:`strique_tpu.ops.cuda.wave_forward`,
+    which computes exactly what :func:`align_diag` computes, one thread
+    block per (read, template) row; the production path on a GPU.
 
 Free end gaps on the signal axis only (template fully aligned), matching
 ``AlignConfig<true,false,false,true>`` of the reference
@@ -26,16 +32,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .. import platform
 from .reference import AlignParams, MAT_M, MAT_H, MAT_V
 
 # plain numpy scalar: a module-level jnp constant would initialize the XLA
 # backend at import time, breaking jax.distributed.initialize() ordering
 NEG = np.float32(-1e30)
+ROW_ALIGN = 128  # template rows per launch are padded to a multiple of this
 
-# DP-cell accounting (BASELINE.md north star: DP cell-updates/s).  Each
-# kernel dispatch site adds its issued cell count (rows x diagonal steps
-# x template lanes); bench.py snapshots around timed passes to report
-# align_cell_updates_per_sec.  Host-side Python ints — no device cost.
+# DP-cell accounting (BASELINE.md north star: DP cell-updates/s).  Host
+# counters of the cells each dispatch issues, computed from its shapes;
+# bench.py snapshots them around timed passes.
 KERNEL_STATS = {"cells": 0, "calls": 0}
 
 
@@ -53,38 +60,25 @@ def kernel_stats() -> dict:
     return dict(KERNEL_STATS)
 
 
+def row_pad(m_max: int) -> int:
+    """Padded template-row count MP of a launch whose longest template is ``m_max``."""
+    return -(-(m_max + 1) // ROW_ALIGN) * ROW_ALIGN
+
+
 def count_issued_cells_estimate(B: int, npad: int, m_pre: int, m_suf: int) -> None:
-    """Account the DP cells a jitted flank-alignment dispatch will issue.
+    """Account the DP cells one batch's flank alignment issues.
 
-    The jitted pipelines (counter._bounds_pipeline/_pipeline) trace the
-    align dispatch loop once, so the per-call-site counters above never
-    fire at run time; this mirrors align_fused_pair's dispatch decisions
-    (fusion rule, wave call width, diagonal step count) analytically at
-    the host call site.  Standard (non-ultra-long) path only — the
-    two-pass route dispatches eagerly and self-counts.
+    The jitted pipelines trace their align dispatch once, so this counts
+    from the launch shape at the host call site: on the CUDA path 2B
+    rows x (N + MP) diagonal steps x MP rows; on the scan path B reads x
+    N columns x (m + 1) rows per flank.
     """
-    import jax
-
-    from .align_pallas import BATCH_TPU_WAVE as W
-    from .align_pallas import CHUNK, _round_up
-
-    if jax.default_backend() != "tpu":
-        for m in (m_pre, m_suf):
-            _count_cells(B, npad, m + 1)
-        return
-    nc = _round_up(npad, CHUNK)
-    tail = B % W
-    if 0 < tail <= W // 2:  # align_fused_pair's fusion rule
-        mp = _round_up(max(m_pre, m_suf) + 1, 128)
-        calls = -(-2 * B // W)
-        _count_cells(calls * W, nc + mp, mp)
-        KERNEL_STATS["calls"] += calls - 1
+    if platform.align_impl() == "cuda":
+        mp = row_pad(max(m_pre, m_suf))
+        _count_cells(2 * B, npad + mp, mp)
         return
     for m in (m_pre, m_suf):
-        mp = _round_up(m + 1, 128)
-        rows = -(-B // W) * W
-        _count_cells(rows, nc + mp, mp)
-        KERNEL_STATS["calls"] += rows // W - 1
+        _count_cells(B, npad, m + 1)
 
 
 @partial(jax.jit, static_argnames=("params", "with_traceback"))
@@ -165,30 +159,22 @@ def traceback_pointers(ptrs, j_end, m: int, packed=False, m_start=None):
     """Walk the 4-bit pointer array back from cell (m, j_end).
 
     ``ptrs``: (N, MP) with MP >= m; byte at [j-1, i-1] describes DP cell
-    (row i, column j).  With ``packed=True`` (the column Pallas kernel's
-    layout), ``ptrs`` is (N//8, MP) int32 and column j's code sits in
-    nibble (j-1) % 8 of word [(j-1)//8, i-1].  With ``packed='diag'``
-    (the wavefront kernel's layout), the code of cell (i, j) sits at
-    diagonal step t = i + j - 1: word [t//8, i], nibble t % 8 — and the
-    V-extend bit lives at its SOURCE cell (bit 3 of (i, j) answers
-    "does Iv(i+1, j) extend from here"), so the walk reads it from the
-    cell it steps to; the kernel then needs no cross-step pointer carry.
-    Returns per-template-element gap flags and signal positions plus
-    ``j_begin``.  ``m_start`` (traced) overrides the walk's start row
-    for per-row template lengths (flank-fused batches); ``m`` stays the
-    static output size (entries at indices >= m_start are unused).
+    (row i, column j).  With ``packed='diag'`` (the layout of
+    :func:`align_diag` and the CUDA kernel), the code of cell (i, j)
+    sits at diagonal step t = i + j - 1: word [t//8, i], nibble t % 8 —
+    and the V-extend bit lives at its SOURCE cell (bit 3 of (i, j)
+    answers "does Iv(i+1, j) extend from here"), so the walk reads it
+    from the cell it steps to.  Returns per-template-element gap flags
+    and signal positions plus ``j_begin``.  ``m_start`` (traced)
+    overrides the walk's start row for per-row template lengths; ``m``
+    stays the static output size (entries at indices >= m_start are
+    unused).
     """
     if packed == "diag":
         def lookup(jc, ic):
             t = jnp.maximum(ic + jc - 1, 0)
             word = ptrs[t // 8, ic]
             nib = (word >> (4 * (t % 8))) & 15
-            return jnp.where(jc > 0, nib.astype(jnp.uint8), jnp.uint8(MAT_V | 8))
-    elif packed:
-        def lookup(jc, ic):
-            jz = jnp.maximum(jc - 1, 0)
-            word = ptrs[jz // 8, ic - 1]
-            nib = (word >> (4 * (jz % 8))) & 15
             return jnp.where(jc > 0, nib.astype(jnp.uint8), jnp.uint8(MAT_V | 8))
     else:
         def lookup(jc, ic):
@@ -203,8 +189,7 @@ def traceback_pointers(ptrs, j_end, m: int, packed=False, m_start=None):
 
     def body(state):
         # one lookup per step (the fetched next-cell byte is carried), and
-        # masked dense row updates instead of scatters — scatters inside a
-        # vmapped while_loop dominate traceback runtime on TPU
+        # masked dense row updates instead of scatters inside the vmapped loop
         i, j, cur, byte, is_gap, jpos = state
         is_m = cur == MAT_M
         is_h = cur == MAT_H
@@ -218,8 +203,8 @@ def traceback_pointers(ptrs, j_end, m: int, packed=False, m_start=None):
         nj = jnp.where(is_v, j, j - 1)
         nbyte = lookup(nj, ni)
         # diag layout: the V-extend bit lives at its source cell (the one
-        # being stepped to); column/unpacked layouts keep it at the
-        # current cell.  Same value either way — see the kernel comment.
+        # being stepped to); the unpacked layout keeps it at the current
+        # cell.  Same value either way.
         vext_src = nbyte if packed == "diag" else byte
         ext = jnp.where(is_h, (byte >> 2) & 1, (vext_src >> 3) & 1)
         stay = (~is_m) & (ext == 1)
@@ -237,401 +222,202 @@ def traceback_pointers(ptrs, j_end, m: int, packed=False, m_start=None):
     return {"is_gap": is_gap, "jpos": jpos, "j_begin": j_begin}
 
 
-@partial(jax.jit, static_argnames=("params", "m_actual"))
-def _align_batch_pallas(signals, n_actual, template_padded,
-                        params: AlignParams, m_actual: int):
-    from .align_pallas import align_forward_pallas
+def pad_template_rows(templates, mp: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row templates -> ((R, MP) rows with +1e30 pads, (R,) lengths).
 
-    ptr, bottom = align_forward_pallas(signals, n_actual, template_padded, params, m_actual)
-    # include virtual column 0 (full-template vertical gap, no signal)
-    b0 = jnp.float32(params.gap_open_v) + jnp.float32(params.gap_extension_v) * (m_actual - 1)
-    bottom = jnp.concatenate([jnp.full((signals.shape[0], 1), b0), bottom], axis=1)
-    j_end = jnp.argmax(bottom, axis=1).astype(jnp.int32)
-    score = jnp.take_along_axis(bottom, j_end[:, None], axis=1)[:, 0]
-    # ptr layout is (N//8, B, MP) nibble-packed: vmap over the read axis 1
-    tb = jax.vmap(lambda p, je: traceback_pointers(p, je, m_actual, packed=True),
-                  in_axes=(1, 0))(ptr, j_end)
-    return {"score": score, "j_end": j_end, **tb}
+    Row r holds template r at rows 1..m_r (row 0 is the DP's empty
+    prefix); pads never win a match.
+    """
+    ms = np.array([len(t) for t in templates], np.int32)
+    mp = mp or row_pad(int(ms.max()))
+    out = np.full((len(templates), mp), 1e30, np.float32)
+    for r, t in enumerate(templates):
+        out[r, 1 : len(t) + 1] = np.asarray(t, np.float32)
+    return out, ms
 
 
-@partial(jax.jit, static_argnames=("params", "m_actual"))
-def _align_batch_wave(signals, n_actual, template_padded,
-                      params: AlignParams, m_actual: int):
-    from .align_pallas import align_forward_wave
+@partial(jax.jit, static_argnames=("params",))
+def align_diag(signals, n_actual, tmpl_rows, m_rows, params: AlignParams):
+    """Forward DP over anti-diagonals for R rows with per-row templates.
 
-    ptr, bottom_steps = align_forward_wave(signals, n_actual, template_padded,
-                                           params, m_actual)
-    # bottom_steps[:, t] = bottom(column j = t + 1 - m): columns 1..N sit
-    # at steps m..m+N-1; prepend the virtual column 0 like the column path
-    bottom_cols = bottom_steps[:, m_actual : m_actual + signals.shape[1]]
-    b0 = jnp.float32(params.gap_open_v) + jnp.float32(params.gap_extension_v) * (m_actual - 1)
-    bottom = jnp.concatenate(
-        [jnp.full((signals.shape[0], 1), b0), bottom_cols], axis=1)
-    j_end = jnp.argmax(bottom, axis=1).astype(jnp.int32)
-    score = jnp.take_along_axis(bottom, j_end[:, None], axis=1)[:, 0]
-    tb = jax.vmap(lambda p, je: traceback_pointers(p, je, m_actual, packed="diag"),
-                  in_axes=(1, 0))(ptr, j_end)
-    return {"score": score, "j_end": j_end, **tb}
+    signals: (R, N) f32; n_actual, m_rows: (R,) i32; tmpl_rows: (R, MP)
+    f32 as built by :func:`pad_template_rows`.  Step t computes every
+    cell (i, j) with i + j - 1 == t; the vertical-gap prefix max rides
+    as a running value C(i, j) = max(C(i-1, j), Q(i, j) + go_v - (i+1)g)
+    taken from the previous diagonal, so each step needs only shifted
+    neighbours.  Returns (ptr, score, j_end): ptr (ceil((N+MP)/8), R, MP)
+    int32 with the code of cell (i, j) in word [(i+j-1)//8, r, i],
+    nibble (i+j-1) % 8; score/j_end the leftmost best bottom-row cell,
+    the virtual column 0 included.  The CUDA kernel's outputs agree on
+    every word a traceback can read.
+    """
+    R, N = signals.shape
+    mp = tmpl_rows.shape[1]
+    nd8 = -(-(N + mp) // 8)
+    go_h = np.float32(params.gap_open_h)
+    go_v = np.float32(params.gap_open_v)
+    ge_h = np.float32(params.gap_extension_h)
+    ge_v = np.float32(params.gap_extension_v)
+    off = np.float32(params.dist_offset)
+    dmin = np.float32(params.dist_min)
+    g = np.float32(max(params.gap_extension_v, params.gap_open_v))
+    signals = signals.astype(jnp.float32)
+    n_actual = n_actual.astype(jnp.int32)
+    m_rows = m_rows.astype(jnp.int32)
+    lane_i = jnp.arange(mp, dtype=jnp.int32)[None, :]
+    lane = lane_i.astype(jnp.float32)
+    row0 = lane_i == 0
+    col0 = jnp.where(row0, 0.0, go_v + ge_v * (lane - 1.0))
+    msel = lane_i == m_rows[:, None]
+
+    def shift1(x):
+        return jnp.concatenate([jnp.full((R, 1), NEG), x[:, :-1]], axis=1)
+
+    def diag_step(carry, t):
+        S1, S2, Ih, C = carry
+        a = jnp.take_along_axis(signals, jnp.clip(t - lane_i, 0, N - 1) + 0 * m_rows[:, None],
+                                axis=1)
+        diff = jnp.abs(a - tmpl_rows)
+        sc = jnp.maximum(off - jnp.power(diff, np.float32(1.2)), dmin)
+        ih_ext = Ih + ge_h
+        ih_open = S1 + go_h
+        newIh = jnp.maximum(ih_ext, ih_open)
+        newM = shift1(S2) + sc
+        Q = jnp.where(row0, 0.0, jnp.maximum(newM, newIh))
+        cvec = Q + go_v - (lane + 1.0) * g
+        C_sh = shift1(C)  # C(i-1, j): the column max down to row i-1
+        newC = jnp.maximum(C_sh, cvec)
+        newIv = C_sh + lane * g
+        newS = jnp.maximum(Q, newIv)
+        which = jnp.where(newM >= newS, MAT_M, jnp.where(newIv >= newS, MAT_V, MAT_H))
+        code = (which | ((ih_ext >= ih_open).astype(jnp.int32) << 2)
+                | ((newIv + ge_v >= newS + go_v).astype(jnp.int32) << 3))
+        # cell (t+1, 0) enters the band: pin its column-0 boundary
+        bmask = lane_i == t + 1
+        newS = jnp.where(bmask, col0, newS)
+        newIh = jnp.where(bmask, NEG, newIh)
+        j = t + 1 - m_rows
+        live = (j >= 1) & (j <= n_actual)
+        bval = jnp.where(live, jnp.max(jnp.where(msel, newS, NEG), axis=1), NEG)
+        return (newS, S1, newIh, newC), (code, bval)
+
+    def word_step(carry, w):
+        acc = jnp.zeros((R, mp), jnp.int32)
+        bvals = []
+        for u in range(8):
+            carry, (code, bval) = diag_step(carry, w * 8 + u)
+            acc = acc | (code << (4 * u))
+            bvals.append(bval)
+        return carry, (acc, jnp.stack(bvals, axis=1))
+
+    init = (jnp.where(row0, 0.0, NEG) + jnp.zeros((R, 1), jnp.float32)
+            + 0.0 * signals[:, :1],
+            jnp.full((R, mp), NEG) + 0.0 * signals[:, :1],
+            jnp.full((R, mp), NEG) + 0.0 * signals[:, :1],
+            jnp.full((R, mp), NEG) + 0.0 * signals[:, :1])
+    _, (ptr, bsteps) = jax.lax.scan(word_step, init, jnp.arange(nd8, dtype=jnp.int32))
+    bottom = jnp.transpose(bsteps, (1, 0, 2)).reshape(R, nd8 * 8)
+    # leftmost best over columns, virtual column 0 (b0) first: argmax in
+    # step space is argmax in column space (a monotonic shift per row)
+    b0 = go_v + ge_v * (m_rows.astype(jnp.float32) - 1.0)
+    best = jnp.concatenate([b0[:, None], bottom], axis=1)
+    k = jnp.argmax(best, axis=1).astype(jnp.int32)
+    score = jnp.take_along_axis(best, k[:, None], axis=1)[:, 0]
+    j_end = jnp.where(k == 0, 0, k - m_rows).astype(jnp.int32)
+    return ptr, score, j_end
 
 
-@partial(jax.jit, static_argnames=("params", "m_max"))
-def _align_batch_wave_multi(signals, n_actual, tmpl_rows, m_rows,
-                            params: AlignParams, m_max: int):
-    from .align_pallas import align_forward_wave_multi
+@partial(jax.jit, static_argnames=("m_max",))
+def traceback_diag(ptr, j_end, m_rows, m_max: int):
+    """Vmapped :func:`traceback_pointers` over the rows of a diagonal plane."""
+    return jax.vmap(lambda p, je, mr: traceback_pointers(p, je, m_max, packed="diag",
+                                                         m_start=mr),
+                    in_axes=(1, 0, 0))(ptr, j_end, m_rows)
 
-    ptr, bottom_steps = align_forward_wave_multi(signals, n_actual, tmpl_rows,
-                                                 m_rows, params)
-    # leftmost-max over columns, including the virtual column 0 (b0):
-    # argmax in step space is argmax in column space (monotonic shift)
-    smax = jnp.max(bottom_steps, axis=1)
-    tstar = jnp.argmax(bottom_steps, axis=1).astype(jnp.int32)
-    jstar = tstar + 1 - m_rows.astype(jnp.int32)
-    b0 = (jnp.float32(params.gap_open_v)
-          + jnp.float32(params.gap_extension_v) * (m_rows.astype(jnp.float32) - 1.0))
-    j_end = jnp.where(b0 >= smax, 0, jstar).astype(jnp.int32)
-    score = jnp.maximum(b0, smax)
-    tb = jax.vmap(lambda p, je, mr: traceback_pointers(p, je, m_max, packed="diag",
-                                                       m_start=mr),
-                  in_axes=(1, 0, 0))(ptr, j_end, m_rows.astype(jnp.int32))
-    return {"score": score, "j_end": j_end, **tb}
+
+def align_rows(signals, n_actual, tmpl_rows_np, m_rows_np, params: AlignParams,
+               impl: str) -> dict:
+    """Align R rows, each against its own template, on the diagonal layout.
+
+    ``impl``: "cuda" (the CUDA forward and traceback kernels) or "diag"
+    (:func:`align_diag` + the lax traceback).  Rows run in launches as
+    wide as the pointer budget allows (:func:`platform.launch_rows`).
+    Returns dict of (R, ...) arrays (score, j_end, is_gap, jpos, j_begin)
+    with is_gap/jpos sized to the longest template.
+    """
+    R, N = signals.shape
+    mp = tmpl_rows_np.shape[1]
+    m_max = int(np.max(m_rows_np))
+    width = platform.launch_rows(R, N, mp)
+    outs = []
+    for r0 in range(0, R, width):
+        sl = slice(r0, min(r0 + width, R))
+        tr = jnp.asarray(tmpl_rows_np[sl])
+        mr = jnp.asarray(m_rows_np[sl])
+        if impl == "cuda":
+            from . import cuda
+
+            outs.append(cuda.align_rows(signals[sl], n_actual[sl], tr, mr, params, m_max))
+        else:
+            ptr, score, j_end = align_diag(signals[sl], n_actual[sl], tr, mr, params)
+            tb = traceback_diag(ptr, j_end, mr, m_max)
+            outs.append({"score": score, "j_end": j_end, **tb})
+    if len(outs) == 1:
+        return outs[0]
+    return {k: jnp.concatenate([o[k] for o in outs]) for k in outs[0]}
 
 
 def align_fused_pair(signals, n_actual, t_pre, t_suf, params: AlignParams,
-                     devices=None):
-    """Both flank alignments of a batch as ONE per-row-template stream.
+                     impl: str = "auto"):
+    """Both flank alignments of a batch.
 
-    The wave kernel's per-call time is flat in width, so a partial batch
-    (B <= 32) pays the same for one fused 64-wide call as it would for
-    ONE of its two flank calls — this halves the align cost of ragged
-    tail batches (rows: [read0 x prefix .. readB x prefix, read0 x
-    suffix ..]).  Returns (pre, suf) dicts shaped like align_core's.
-    Falls back to two plain calls off-TPU, under STRIQUE_ALIGN_FUSE=0,
-    or past the pointer budget (the two-pass long-read route owns that
-    regime).
+    On the diagonal layout ("cuda"/"diag") both flanks run as ONE stream
+    of 2B rows with per-row templates ([read0 x prefix .. readB x prefix,
+    read0 x suffix ..]), so a 64-read batch fills 128 thread blocks in
+    one launch.  On the scan path ("xla") each flank is its own vmapped
+    scan.  Returns (pre, suf) dicts shaped like :func:`align_core`'s.
     """
-    import os
-
+    if impl == "auto":
+        impl = platform.align_impl()
     signals = jnp.asarray(signals, jnp.float32)
     n_actual = jnp.asarray(n_actual, jnp.int32)
     t_pre = np.asarray(t_pre, np.float32)
     t_suf = np.asarray(t_suf, np.float32)
-    from .align_pallas import (CHUNK, kernel_batch, pad_template_rows,
-                               ptr_budget_bytes)
-
-    fuse_env = os.environ.get("STRIQUE_ALIGN_FUSE")
-    use_fuse = ((jax.default_backend() == "tpu" and fuse_env != "0")
-                or fuse_env == "force")  # force: interpret-mode testing
-    if use_fuse and fuse_env != "force":
-        # fuse only when it reduces the kernel-call count: with call
-        # width W, ceil(2B/W) < 2*ceil(B/W) iff the per-flank tail is at
-        # most half a call.  Full batches gain nothing and would pay the
-        # per-row-template overhead (masked bottom taps, (B, MP)
-        # template reads), measured as ~5% on the uniform bench.
-        from .align_pallas import BATCH_TPU_WAVE as _W
-
-        tail = signals.shape[0] % _W
-        if tail == 0 or tail > _W // 2:
-            use_fuse = False
-    if use_fuse:
-        tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
-        mp = tmpl_rows_np.shape[1]
-        nd = signals.shape[1] + (-signals.shape[1]) % CHUNK + mp
-        if nd * 8 * mp // 2 > ptr_budget_bytes():
-            use_fuse = False
-    if not use_fuse:
-        pre = align_core(signals, n_actual, t_pre, params, devices=devices)
-        suf = align_core(signals, n_actual, t_suf, params, devices=devices)
-        return pre, suf
-
-    B, N = signals.shape
-    npad = (-N) % CHUNK
-    if npad:
-        signals = jnp.pad(signals, ((0, 0), (0, npad)))
-    m_max = int(ms.max())
-    sig2 = jnp.concatenate([signals, signals])
-    na2 = jnp.concatenate([n_actual, n_actual])
-    rows2 = np.concatenate([np.repeat(tmpl_rows_np[0:1], B, axis=0),
-                            np.repeat(tmpl_rows_np[1:2], B, axis=0)])
-    ms2 = np.concatenate([np.full(B, ms[0], np.int32), np.full(B, ms[1], np.int32)])
-    rows2_dev = jnp.asarray(rows2)
-    outs = []
-    b0 = 0
-    R = 2 * B
-    while b0 < R:
-        kb = kernel_batch(R - b0, n_cols=sig2.shape[1] + mp, mp=mp, wave=True)
-        end = b0 + kb
-        sl, na, tr, mr = (sig2[b0:end], na2[b0:end], rows2_dev[b0:end], ms2[b0:end])
-        if end > R:
-            sl = jnp.pad(sl, ((0, end - R), (0, 0)))
-            na = jnp.pad(na, (0, end - R), constant_values=1)
-            tr = jnp.pad(tr, ((0, end - R), (0, 0)), constant_values=1e30)
-            mr = np.pad(mr, (0, end - R), constant_values=1)
-        _count_cells(kb, sig2.shape[1] + mp, mp)
-        outs.append(_align_batch_wave_multi(sl, na, tr, jnp.asarray(mr), params, m_max))
-        b0 = end
-    out = {k: jnp.concatenate([o[k] for o in outs])[:R] for k in outs[0]}
+    if impl == "xla":
+        return (align_core(signals, n_actual, t_pre, params, impl),
+                align_core(signals, n_actual, t_suf, params, impl))
+    B = signals.shape[0]
+    rows_np, ms = pad_template_rows([t_pre, t_suf])
+    rows2 = np.repeat(rows_np, B, axis=0)
+    ms2 = np.repeat(ms, B)
+    out = align_rows(jnp.concatenate([signals, signals]),
+                     jnp.concatenate([n_actual, n_actual]), rows2, ms2, params, impl)
     pre = {k: (v[:B, : len(t_pre)] if v.ndim == 2 else v[:B]) for k, v in out.items()}
     suf = {k: (v[B:, : len(t_suf)] if v.ndim == 2 else v[B:]) for k, v in out.items()}
     return pre, suf
 
 
-@partial(jax.jit, static_argnames=("W", "mp"))
-def _gather_windows(sig_dev, t0_dev, W: int, mp: int):
-    """Device-side per-read window gather for the two-pass pass 2.
-
-    Replaces the per-read host slice loop (B numpy copies of W-sample
-    windows + a B*W H2D) with one on-device gather of the already
-    uploaded signals: sig_win[i] = a_i[t0 .. t0+W) and r_init[i] =
-    reversed a_i[t0-mp .. t0) (zero-padded outside the signal, matching
-    the host path's pad semantics).
-    """
-    sig_ext = jnp.pad(sig_dev, ((0, 0), (mp, W)))
-    cols = jnp.arange(W, dtype=jnp.int32)[None, :]
-    sig_win = jnp.take_along_axis(sig_ext, mp + t0_dev[:, None] + cols, axis=1)
-    rcols = jnp.arange(mp, dtype=jnp.int32)[None, :]
-    r_init = jnp.take_along_axis(sig_ext, t0_dev[:, None] + rcols, axis=1)[:, ::-1]
-    return sig_win, r_init
-
-
-def _longread_pass1(signals, n_actual, template_np: np.ndarray,
-                    params: AlignParams, ckpt_steps: int, device=None) -> dict:
-    """Dispatch the two-pass pass 1 (score-only forward + checkpoints).
-
-    Returns a state dict of device arrays + metadata; the dispatch is
-    asynchronous, so callers can fan several groups out over devices
-    (``device``: jax.Device to pin this group's computation to) before
-    the first :func:`_longread_pass2` synchronizes.
-    """
-    from .align_pallas import (CHUNK, align_forward_ckpt, pad_template,
-                               wave_span_bound_steps)
-
-    signals = np.asarray(signals, np.float32)
-    n_actual = np.asarray(n_actual, np.int32)
-    B, N = signals.shape
-    assert B % 8 == 0
-    tmpl_padded, m = pad_template(np.asarray(template_np))
-    mp = tmpl_padded.shape[1]
-    bound = wave_span_bound_steps(params, m)
-    if bound is None:
-        raise ValueError(
-            "two-pass alignment needs negative horizontal gap costs "
-            "(no span bound exists otherwise); use the one-pass kernel")
-    # every warm restart t0 (a checkpoint boundary) must lie past the
-    # column-0 boundary region: pass 2 only forces boundary state for
-    # cold (t0 == 0) reads, so a warm t0 < mp could miss a column-0
-    # entry tie at the span-bound edge.  Clamp ckpt_steps >= mp so the
-    # first checkpoint boundary is already beyond the boundary region.
-    ckpt_chunks = max(ckpt_steps // CHUNK, -(-mp // CHUNK), 1)
-    ckpt_steps = ckpt_chunks * CHUNK
-    # pad N so ND divides the checkpoint stride
-    nd = ((N + mp + ckpt_steps - 1) // ckpt_steps) * ckpt_steps
-    npad = nd - mp - N
-    if npad:
-        signals = np.pad(signals, ((0, 0), (0, npad)))
-        N = signals.shape[1]
-    W = ((bound + ckpt_steps + CHUNK - 1) // CHUNK) * CHUNK
-
-    def put(x):
-        return jax.device_put(x, device) if device is not None else jnp.asarray(x)
-
-    sig_dev = put(signals)
-    tmpl_dev = put(tmpl_padded)
-    _count_cells(B, N + mp, mp)  # pass 1 (score-only forward)
-    bottom_steps, ckpts = align_forward_ckpt(
-        sig_dev, put(n_actual), tmpl_dev, params, m, ckpt_chunks)
-    return {"bottom_steps": bottom_steps, "ckpts": ckpts, "sig_dev": sig_dev,
-            "tmpl_dev": tmpl_dev, "params": params, "m": m, "mp": mp,
-            "bound": bound, "ckpt_steps": ckpt_steps, "B": B, "N": N, "W": W,
-            "device": device, "put": put}
-
-
-def _longread_pass2(st: dict) -> dict:
-    """Synchronize a pass-1 state and run pass 2 + traceback.
-
-    Returns the align_core-shaped dict as HOST numpy arrays (groups may
-    live on different devices; callers concatenate on host).
-    """
-    from .align_pallas import align_window_from_state
-
-    params, m, mp = st["params"], st["m"], st["mp"]
-    B, N, W = st["B"], st["N"], st["W"]
-    put = st["put"]
-    # exact score / j_end from the step-space bottoms (column j at step
-    # m+j-1; virtual column 0 = full-template vertical gap)
-    bottom_cols = st["bottom_steps"][:, m : m + N]
-    b0 = jnp.float32(params.gap_open_v) + jnp.float32(params.gap_extension_v) * (m - 1)
-    bottom = jnp.concatenate([jnp.full((B, 1), b0), bottom_cols], axis=1)
-    j_end = np.asarray(jnp.argmax(bottom, axis=1)).astype(np.int64)
-    score = np.asarray(jnp.take_along_axis(bottom, put(j_end)[:, None], axis=1))[:, 0]
-
-    # per-read window: [t0, t0+W) with t0 on a checkpoint boundary at or
-    # before t_end - bound, so every step the traceback can visit is
-    # in-window; W >= bound + ckpt_steps makes t_end fit
-    t_end = j_end + m - 1
-    t0 = np.maximum(t_end - st["bound"], 0) // st["ckpt_steps"] * st["ckpt_steps"]
-    cold = (t0 == 0).astype(np.int32)
-    slot = t0 // st["ckpt_steps"] - 1  # checkpoint slot g-1; cold reads ignore it
-    slot_d = put(np.maximum(slot, 0).astype(np.int32))
-
-    # gather per-read restart state (cold reads get cold-start values)
-    lane = np.arange(mp)
-    cold_state = [
-        np.where(lane == 0, 0.0, NEG).astype(np.float32)[None, :].repeat(B, 0),
-        np.full((B, mp), NEG, np.float32),
-        np.full((B, mp), NEG, np.float32),
-        np.full((B, mp), NEG, np.float32),
-    ]
-    state4 = []
-    for k in range(4):
-        warm = np.asarray(jnp.take_along_axis(
-            st["ckpts"][k], slot_d[None, :, None], axis=0)[0])
-        state4.append(np.where(cold[:, None] == 1, cold_state[k], warm))
-    # per-read signal window + reversed pre-window, gathered ON DEVICE
-    # from the already-uploaded signals (no B x W host copies/uploads)
-    sig_win, r_init = _gather_windows(st["sig_dev"], put(t0.astype(np.int32)), W, mp)
-    steps_needed = (t_end - t0 + 1).astype(np.int32)
-
-    _count_cells(B, W, mp)  # pass 2 (windowed pointer recompute)
-    ptr = align_window_from_state(
-        sig_win, r_init, tuple(put(x) for x in state4), put(cold),
-        put(steps_needed), st["tmpl_dev"], params, m)
-
-    # traceback per read in local step space (j_local = j_global - t0)
-    j_end_local = put((j_end - t0).astype(np.int32))
-    tb = jax.vmap(lambda p, je: traceback_pointers(p, je, m, packed="diag"),
-                  in_axes=(1, 0))(ptr, j_end_local)
-    return {
-        "score": score.astype(np.float32),
-        "j_end": j_end.astype(np.int32),
-        "is_gap": np.asarray(tb["is_gap"]),
-        "jpos": np.asarray(tb["jpos"]) + t0.astype(np.int32)[:, None],
-        "j_begin": np.asarray(tb["j_begin"]) + t0.astype(np.int32),
-    }
-
-
-def align_batch_longread(signals, n_actual, template_np: np.ndarray,
-                         params: AlignParams, ckpt_steps: int = 16384,
-                         device=None):
-    """Checkpointed two-pass alignment for reads past the pointer budget.
-
-    Exact by construction (see ops.align_pallas two-pass notes): pass 1
-    runs the score-only wavefront with diagonal-state checkpoints every
-    ``ckpt_steps``; pass 2 recomputes pointers for a window that
-    provably contains the optimal path, resuming from the checkpoint at
-    its start — the restart state equals the full DP state, so pointers
-    and tracebacks are bit-identical to a (hypothetical) full plane.
-    Memory: O(ND/ckpt_steps + W) per read instead of O(ND).  The
-    reference's full-matrix SeqAn DP (src/align_raw.h:117-158) has no
-    such mode and exhausts host RAM at the same scale.
-    """
-    out = _longread_pass2(_longread_pass1(signals, n_actual, template_np,
-                                          params, ckpt_steps, device))
-    return {k: jnp.asarray(v) for k, v in out.items()}
-
-
-def align_longread_sharded(signals, n_actual, template_np: np.ndarray,
-                           params: AlignParams, devices=None,
-                           ckpt_steps: int = 16384, group: int = 8):
-    """Two-pass alignment with 8-wide groups round-robined over devices.
-
-    The phases are independent per group, so ultra-long batches scale
-    across chips without shard_map: every group's pass 1 dispatches
-    (asynchronously) to its device before the first pass-2 synchronizes,
-    and pass 2 / traceback then overlap across devices the same way.
-    ``devices=None`` (or a single device) degrades to the sequential
-    single-device behavior.  Results are bit-identical to
-    :func:`align_batch_longread` — same kernels, same per-group math.
-    """
-    signals = np.asarray(signals, np.float32)
-    n_actual = np.asarray(n_actual, np.int32)
-    B = signals.shape[0]
-    devs = list(devices) if devices else [None]
-    states = []
-    for gi, g0 in enumerate(range(0, B, group)):
-        sl = signals[g0 : g0 + group]
-        na = n_actual[g0 : g0 + group]
-        if len(sl) < group:
-            sl = np.pad(sl, ((0, group - len(sl)), (0, 0)))
-            na = np.pad(na, (0, group - len(na)), constant_values=1)
-        states.append(_longread_pass1(sl, na, template_np, params, ckpt_steps,
-                                      device=devs[gi % len(devs)]))
-    outs = [_longread_pass2(st) for st in states]
-    return {k: jnp.asarray(np.concatenate([o[k] for o in outs])[:B])
-            for k in outs[0]}
-
-
 def align_core(signals, n_actual, template_np: np.ndarray, params: AlignParams,
-               impl: str = "auto", devices=None):
+               impl: str = "auto"):
     """Batched alignment on local data — traceable inside jit/shard_map.
 
-    signals: (B, N); uses the Pallas kernel on TPU (B padded to the
-    kernel batch, N must be a multiple of its chunk), the lax.scan kernel
-    elsewhere.  ``template_np`` must be a host numpy array (its length is
-    static).  ``devices``: optional jax.Device list for the ultra-long
-    two-pass route only (its host-orchestrated groups round-robin over
-    them; the standard in-jit path ignores it — mesh callers shard via
-    shard_map instead).  Returns dict of per-read arrays (score, j_end,
-    is_gap, jpos, j_begin).
+    signals: (B, N).  ``impl``: "auto" (:func:`platform.align_impl`),
+    "xla" (vmapped :func:`align_scan`), "diag" or "cuda" (the diagonal
+    layout, see :func:`align_rows`).  ``template_np`` must be a host
+    numpy array (its length is static).  Returns dict of per-read arrays
+    (score, j_end, is_gap, jpos, j_begin).
     """
     if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl in ("pallas", "pallas_col", "pallas_wave"):
-        import os
-
-        from .align_pallas import CHUNK, kernel_batch, pad_template
-
-        if impl == "pallas":
-            # wavefront by default (bit-identical, ~1.3x the column
-            # kernel); STRIQUE_ALIGN_KERNEL=col restores the column sweep
-            impl = ("pallas_col"
-                    if os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
-                    else "pallas_wave")
-        batch_fn = (_align_batch_wave if impl == "pallas_wave"
-                    else _align_batch_pallas)
-        B, N = signals.shape
-        npad = (-N) % CHUNK
-        if npad:
-            signals = jnp.pad(signals, ((0, 0), (0, npad)))
-        tmpl_padded, m = pad_template(np.asarray(template_np))
-        if impl == "pallas_wave":
-            # past the HBM budget even a width-8 one-pass pointer plane
-            # cannot exist: route to the exact checkpointed two-pass
-            from .align_pallas import ptr_budget_bytes, wave_span_bound_steps
-
-            nd = signals.shape[1] + tmpl_padded.shape[1]
-            if (nd * 8 * tmpl_padded.shape[1] // 2 > ptr_budget_bytes()
-                    and wave_span_bound_steps(params, m) is not None):
-                # 8-wide groups bound pass-1 memory; with ``devices`` the
-                # groups round-robin over chips (pass-1 dispatches fan
-                # out before the first sync) — the ultra-long regime
-                # scales with the mesh like the standard path does
-                return align_longread_sharded(np.asarray(signals),
-                                              np.asarray(n_actual),
-                                              template_np, params,
-                                              devices=devices)
-        tmpl_dev = jnp.asarray(tmpl_padded)
-        outs = []
-        b0 = 0
-        while b0 < B:
-            # full groups at the 32-wide kernel; the tail at the smallest
-            # covering width (8/16/24) so partial batches don't pay full price
-            wave = impl == "pallas_wave"
-            # wave pointer plane covers N + MP diagonal steps
-            n_cols = signals.shape[1] + (tmpl_padded.shape[1] if wave else 0)
-            kb = kernel_batch(B - b0, n_cols=n_cols,
-                              mp=tmpl_padded.shape[1], wave=wave)
-            end = b0 + kb
-            sl, na = signals[b0:end], n_actual[b0:end]
-            if end > B:
-                sl = jnp.pad(sl, ((0, end - B), (0, 0)))
-                na = jnp.pad(na, (0, end - B), constant_values=1)
-            _count_cells(kb, n_cols if wave else signals.shape[1], tmpl_padded.shape[1])
-            outs.append(batch_fn(sl, na, tmpl_dev, params, m))
-            b0 = end
-        out = {k: jnp.concatenate([o[k] for o in outs])[:B] for k in outs[0]}
-        return out
+        impl = platform.align_impl()
+    template_np = np.asarray(template_np, np.float32)
+    if impl in ("cuda", "diag"):
+        B = signals.shape[0]
+        rows_np, ms = pad_template_rows([template_np])
+        return align_rows(jnp.asarray(signals, jnp.float32), jnp.asarray(n_actual, jnp.int32),
+                          np.repeat(rows_np, B, axis=0), np.repeat(ms, B), params, impl)
+    if impl != "xla":
+        raise ValueError(f"unknown align impl {impl!r}")
     template = jnp.asarray(template_np, jnp.float32)
-    _count_cells(signals.shape[0], signals.shape[1], len(template_np) + 1)
     inner = jax.vmap(lambda s, n: align_scan(s, n, template, params, True))
     return inner(signals, n_actual)
 
@@ -642,8 +428,8 @@ def align_batch(signals, n_actual, template, params: AlignParams, impl: str = "a
 
     With ``mesh``, the batch is sharded over the mesh's ``data`` axis via
     ``shard_map`` (B padded to a multiple of the axis size; template
-    replicated); each shard runs the same kernel the single-device path
-    uses — the Pallas forward on TPU, the XLA scan elsewhere.
+    replicated); each shard runs the same implementation the
+    single-device path uses.
     Returns dict of per-read arrays (score, j_end, is_gap, jpos, j_begin).
     """
     signals = jnp.asarray(signals, jnp.float32)
@@ -683,8 +469,7 @@ def _nearest_positions(is_gap: np.ndarray, jpos: np.ndarray, n: int) -> np.ndarr
     if g.any():
         # a gap run starts where the predecessor is non-gap or maps to a
         # different left neighbor; offsets within each run decide the
-        # argmin tie-break (vectorized — the scalar run walk was a
-        # per-read host hot spot in the two-phase decode path)
+        # argmin tie-break
         jp = jpos.astype(np.int64)
         start = g & ~(np.concatenate(([False], g[:-1]))
                       & (np.concatenate(([np.int64(-1)], jp[:-1])) == jp))

@@ -247,3 +247,41 @@ def viterbi_np(observations, log_start, log_trans, log_end, mu, sigma, is_unifor
     for t in range(T - 1, 0, -1):
         path[t - 1] = bp[t, path[t]]
     return logp, path
+
+
+# ---------------------------------------------------------------------------
+# whole-read oracle
+# ---------------------------------------------------------------------------
+
+def detect_np(pm, tc, raw, params: AlignParams = AlignParams()):
+    """Float64 oracle for one read: preprocessing -> DP bounds -> Viterbi.
+
+    Mirrors ``RepeatCounter.detect`` semantics (reference
+    STRique.py:581-616) sharing no device code: exact NumPy
+    preprocessing, the full-matrix f64 DP (:func:`detect_range_np`) and
+    the dense f64 Viterbi (:func:`viterbi_np`).  ``tc`` is one strand's
+    ``TargetClassifier``.  Returns (count, score_prefix, score_suffix).
+    """
+    from ..pore_model import mean_abs_dev
+    from . import signal as signal_ops
+    from .viterbi import count_repeats
+
+    raw = np.asarray(raw, np.float64)
+    flt = signal_ops.medfilt3(raw)
+    morph = signal_ops.quantize_morph_np(flt, float(np.median(flt)), mean_abs_dev(flt))
+    morph = signal_ops.open_close_np(morph)
+    morph = pm.normalize2model(morph, mode="minmax")
+    flt = pm.normalize2model(flt, mode="minmax")
+    trim_prefix = len(tc.prefix_ext) - len(tc.prefix)
+    trim_suffix = len(tc.suffix_ext) - len(tc.suffix)
+    sp, prefix_begin, _ = detect_range_np(
+        morph, np.asarray(tc.prefix_ext, np.float64), params, pre_trim=trim_prefix)
+    ss, _, suffix_end = detect_range_np(
+        morph, np.asarray(tc.suffix_ext, np.float64), params, post_trim=trim_suffix)
+    if not (prefix_begin < suffix_end and sp > 0 and ss > 0):
+        return 0, sp, ss
+    chm = tc.repeat_hmm
+    seg = flt[prefix_begin:suffix_end]
+    _, path = viterbi_np(seg, chm.log_start, chm.log_trans, chm.log_end,
+                         chm.mu, chm.sigma, chm.is_uniform, chm.log_uni)
+    return count_repeats(path, len(seg), chm), sp, ss

@@ -1,16 +1,20 @@
-"""Dense log-space Viterbi decoding on TPU.
+"""Log-space Viterbi decoding on the device.
 
 Replaces pomegranate's Cython silent-state Viterbi (invoked at reference
 scripts/STRique.py:434 and :493) with a max-plus scan over a dense
 log-transition matrix produced by the HMM compiler
 (:mod:`strique_tpu.hmm.graph` eliminates silent states at build time, so
-the runtime recursion is a single fused broadcast-add + max per step on
-the VPU).  Backpointers stream to HBM as int16; the path is recovered by
-a reverse ``lax.scan`` of gathers on device.
+the runtime recursion is a single fused broadcast-add + max per step).
+Backpointers stream to device memory as int16; the path is recovered by
+a reverse ``lax.scan`` of gathers on device.  When the HMM factors
+(:mod:`strique_tpu.hmm.factor`), :func:`viterbi_scan_factored` runs the
+O(S log S) factored step instead, and on a GPU its CUDA twin
+(``ops.cuda.viterbi_factored_batch``) runs the whole batch in one kernel;
+:func:`viterbi_batch` picks.
 
 Emissions are computed on the fly per time step from per-state
 (mu, sigma) / uniform constants — no (T, S) emission matrix is ever
-materialized in HBM.
+materialized in device memory.
 """
 from __future__ import annotations
 
@@ -174,10 +178,10 @@ def viterbi_scan_factored(obs, t_actual, log_start, log_trans, log_end, mu, sigm
 
     Forward streams the rescaled score rows (T, S); the backward pass
     recomputes the winning predecessor per visited state from the dense
-    matrix column — identical semantics (and tie-break) to the Pallas
-    recompute-backward kernel (ops/viterbi_pallas.py).  Outputs match
-    :func:`viterbi_scan` up to float32 summation-order effects on
-    chain-routed transitions (validated in tests/test_factor_kernels.py).
+    matrix column (first max by state index), the rule NOTES.md calls
+    "recompute backward".  The CUDA kernel computes exactly this.
+    Outputs match :func:`viterbi_scan` up to float32 summation-order
+    effects on chain-routed transitions (tests/test_factor_kernels.py).
     """
     S = log_start.shape[0]
     obs = obs.astype(jnp.float32)
@@ -227,6 +231,26 @@ def viterbi_scan_factored_batch(obs, t_actual, chm_dev, spec, weights):
     """
     return jax.vmap(lambda o, t: viterbi_scan_factored(
         o, t, *chm_dev, spec, *weights))(obs, t_actual)
+
+
+def viterbi_batch(obs, t_actual, chm_dev, factored):
+    """Decode a (B, T) batch: (logp, path).
+
+    ``factored``: ``(spec, weights)`` from :func:`stage_factored`, or None
+    for HMMs that do not factor (they take the dense
+    :func:`viterbi_scan_batch`).  Factored HMMs run the CUDA kernel on a
+    GPU and :func:`viterbi_scan_factored_batch` elsewhere.
+    """
+    from .. import platform
+
+    if factored is None:
+        return viterbi_scan_batch(obs, t_actual, *chm_dev)
+    spec, weights = factored
+    if platform.viterbi_impl() == "cuda":
+        from . import cuda
+
+        return cuda.viterbi_factored_batch(obs, t_actual, chm_dev, spec, weights)
+    return viterbi_scan_factored_batch(obs, t_actual, chm_dev, spec, weights)
 
 
 def path_logp_f64(obs: np.ndarray, path: np.ndarray, chm) -> float:

@@ -1,7 +1,7 @@
 """Host-side pipeline runner.
 
 Replaces the reference's fork-based ``mt_dispatcher`` worker pool
-(reference scripts/STRique.py:733-830).  In the TPU design a single
+(reference scripts/STRique.py:733-830).  Here a single
 process owns the device; parallelism comes from (a) a thread pool that
 overlaps fast5 IO + CPU preprocessing with device compute, and (b) data
 parallelism over reads across chips (:mod:`strique_tpu.parallel.mesh`).

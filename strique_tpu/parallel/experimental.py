@@ -3,14 +3,14 @@
 Not part of the product surface.  Every HMM this framework builds
 (profile/repeat/flanked/mod over 50 bp flanks, reference
 scripts/STRique.py:201-500) has a few hundred states: the factored
-single-chip kernels (ops/viterbi_pallas.py) hold the whole state row in
-a fraction of one chip's VMEM, and the production scaling axis is data
-parallelism over reads (parallel/mesh.py).  This module is kept only as
-a capability sketch for hypothetical state spaces beyond one chip's
-VMEM; its costs — a per-step ``all_gather`` of the full score row and
-dense (T, S_local) int16 backpointers — are exactly what the production
-kernels were designed to avoid, and no supported workload justifies
-them.  See NOTES.md ("sharded_viterbi resolution").
+Viterbi (ops/viterbi.py and its CUDA kernel) holds the whole state row in
+one thread block, and the production scaling axis is data parallelism
+over reads (parallel/mesh.py).  This module is kept only as a capability
+sketch for hypothetical state spaces beyond one device; its costs — a
+per-step ``all_gather`` of the full score row and dense (T, S_local)
+int16 backpointers — are exactly what the production kernels avoid, and
+no supported workload justifies them.  See NOTES.md ("sharded_viterbi
+resolution").
 """
 from __future__ import annotations
 

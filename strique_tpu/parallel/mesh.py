@@ -1,7 +1,7 @@
 """Device-mesh parallelism: data-parallel reads over a 1-D mesh.
 
 The reference's only parallelism is a fork-based worker pool over reads
-(reference scripts/STRique.py:733-830).  The TPU-native equivalent is
+(reference scripts/STRique.py:733-830).  The device equivalent is
 **data parallelism**: batches of reads sharded over a ``data`` mesh axis
 with ``shard_map`` — pure per-read DP, model tensors replicated, no
 cross-read communication, so multi-chip output is bitwise identical to
@@ -9,8 +9,8 @@ single-device.  Multi-host runs initialize through
 :func:`init_distributed` and shard reads across the pod the same way.
 
 State (tensor) parallelism over the HMM is deliberately NOT a product
-path: every supported HMM has a few hundred states and fits one chip's
-VMEM with room to spare (see parallel/experimental.py for the demoted
+path: every supported HMM has a few hundred states, one thread block's
+worth on one device (see parallel/experimental.py for the demoted
 capability sketch and NOTES.md for the resolution rationale).
 """
 from __future__ import annotations
@@ -44,11 +44,15 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     """Initialize multi-host JAX (idempotent); returns this process' index.
 
     With no arguments, initializes from the cluster environment when one
-    is detectable (TPU pod metadata / JAX coordinator env vars).  After
-    initialization, ``make_mesh`` spans all hosts' devices and the
-    ``data`` axis shards reads across the pod; per-host TSV shards
-    concatenate to the final output exactly like the reference's
-    unordered collector stream.
+    is detectable (JAX coordinator env vars).  After initialization,
+    ``make_mesh`` spans all hosts' devices and the ``data`` axis shards
+    reads across them; per-host TSV shards concatenate to the final
+    output exactly like the reference's unordered collector stream.
+
+    Several processes on one machine (the coordinator at a loopback
+    address) each open only their own cards: the visible GPUs split
+    evenly by ``process_id`` (``local_device_ids``), so no two processes
+    reserve memory on the same card.
     """
     import os
 
@@ -59,12 +63,50 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
         return jax.process_index()
     explicit = coordinator is not None or num_processes is not None
     env_cluster = any(os.environ.get(k) for k in (
-        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-        "MEGASCALE_COORDINATOR_ADDRESS"))
+        "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"))
     if explicit or env_cluster:
         jax.distributed.initialize(coordinator_address=coordinator,
-                                   num_processes=num_processes, process_id=process_id)
+                                   num_processes=num_processes, process_id=process_id,
+                                   local_device_ids=_local_gpu_ids(
+                                       coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS"),
+                                       num_processes, process_id))
     return jax.process_index()
+
+
+_LOOPBACK = ("localhost", "127.0.0.1", "[::1]")
+
+
+def _local_gpu_ids(coordinator: str | None, num_processes: int | None,
+                   process_id: int | None):
+    """This process' share of the machine's GPUs, or None (every local card).
+
+    Splits only when all processes share this machine, i.e. the
+    coordinator listens on a loopback address; processes on separate
+    hosts each keep all of their cards.  Counts cards without
+    initializing a JAX backend (that would break
+    ``jax.distributed.initialize``): CUDA_VISIBLE_DEVICES when set, else
+    the /dev/nvidia<N> device nodes.
+    """
+    import os
+    import re
+
+    if not num_processes or num_processes <= 1 or process_id is None:
+        return None
+    if (coordinator or "").rpartition(":")[0] not in _LOOPBACK:
+        return None
+    plats = os.environ.get("JAX_PLATFORMS")
+    if plats is not None and "cuda" not in plats and "gpu" not in plats:
+        return None
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if vis:
+        n = len([d for d in vis.split(",") if d.strip()])
+    else:
+        n = len([f for f in os.listdir("/dev") if re.fullmatch(r"nvidia\d+", f)]) \
+            if os.path.isdir("/dev") else 0
+    if n < num_processes:
+        return None
+    per = n // num_processes
+    return list(range(process_id * per, (process_id + 1) * per))
 
 
 def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
@@ -88,8 +130,8 @@ def batched_align(mesh: Mesh | None, signals, n_actual, template, params,
 
     signals: (B, N) float32; n_actual: (B,) int32; template: (M,) float32.
     B must be divisible by the data-axis size when a mesh is given.  Each
-    shard runs the production kernel (`ops.align.align_core`): the Pallas
-    forward on TPU, the XLA scan elsewhere.
+    shard runs the production implementation (`ops.align.align_core`):
+    the CUDA kernels on a GPU, the XLA scan elsewhere.
     """
     from ..ops.align import align_core
 

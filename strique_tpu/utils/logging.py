@@ -2,7 +2,7 @@
 reference scripts/STRique.py:55-107).
 
 The reference needed a dedicated logging *process* because its workers
-were forked; the TPU pipeline is single-process (host threads + device),
+were forked; this pipeline is single-process (host threads + device),
 so a lock-guarded writer with the same message format suffices.
 """
 from __future__ import annotations

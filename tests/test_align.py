@@ -106,31 +106,30 @@ def test_jax_padding_invariance():
 
 
 def test_kernel_batch_ptr_budget_cap(monkeypatch):
-    """Ultra-long reads must shrink the align kernel width so the
-    traceback-pointer plane (N*B*MP/2 bytes) stays inside the HBM budget
-    instead of OOMing at the full 32-wide batch (the reference's CPU DP
-    has no such cliff, src/align_raw.h:117-158, so neither may we)."""
-    import jax
-
-    from strique_tpu.ops.align_pallas import (BATCH, BATCH_TPU, kernel_batch,
-                                              ptr_budget_bytes)
+    """Long reads must shrink the flank-DP launch width so the
+    traceback-pointer plane stays inside the device-memory budget instead
+    of running out of memory at full width (the reference's CPU DP has no
+    such cliff, src/align_raw.h:117-158), and a single row past the
+    budget must fail with a message naming the read length and budget."""
+    from strique_tpu import platform
 
     monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "3.5")
-    budget = ptr_budget_bytes()
+    budget = platform.ptr_budget_bytes()
     assert budget == int(3.5 * (1 << 30))
-    full = BATCH_TPU if jax.default_backend() == "tpu" else BATCH
-    # bench-scale reads: full width untouched
-    assert kernel_batch(64, n_cols=24576, mp=896) == full
-    # ~900k-sample bucket: width drops to the 8-sublane floor
-    kb = kernel_batch(64, n_cols=917504, mp=896)
-    assert kb == 8 or full == 8
-    assert 917504 * 896 // 2 * 16 > budget  # 16 would overflow
-    # cap never goes below the sublane minimum even past the budget
-    assert kernel_batch(64, n_cols=8 * 1024 * 1024, mp=896) == 8
+    # bench-scale reads: 128 rows (64 reads x 2 flanks) fit one launch
+    assert platform.launch_rows(128, 24576, 896) == 128
+    # ~900k-sample bucket: the width drops to what the budget holds
+    per_row = platform.ptr_row_bytes(917504, 896)
+    kb = platform.launch_rows(128, 917504, 896)
+    assert kb == budget // per_row and 1 <= kb < 128
+    assert kb * per_row <= budget < (kb + 1) * per_row
+    # one row past the budget raises, naming the read length
+    with pytest.raises(ValueError, match="8388608-sample read"):
+        platform.launch_rows(8, 8 * 1024 * 1024, 896)
     # a malformed override falls back instead of raising
     monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "not-a-number")
-    assert ptr_budget_bytes() > 0
+    assert platform.ptr_budget_bytes() > 0
     # without an override the budget comes from device stats (or the
     # 3.5 GB fallback) and is always a sane positive size
     monkeypatch.delenv("STRIQUE_PTR_BUDGET_GB", raising=False)
-    assert ptr_budget_bytes() >= (1 << 28)
+    assert platform.ptr_budget_bytes() >= (1 << 28)

@@ -3,7 +3,7 @@
 ``strique count --devices N`` must produce byte-identical TSV output to
 the single-device run: the fused detection pipeline is per-read work
 under ``shard_map``, so sharding reads over chips cannot change any
-result bit (the TPU-native replacement for the reference's ``--t``
+result bit (the device-mesh replacement for the reference's ``--t``
 worker-pool knob, reference scripts/STRique.py:912).
 """
 import io
@@ -16,11 +16,16 @@ import pytest
 
 from strique_tpu.cli import main
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
-REPEAT_TSV = "/root/reference/configs/repeat_config.tsv"
+MODEL = default_assets().model
+REPEAT_TSV = default_assets().repeat_config
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.fixture(autouse=True)
+def eight_devices():
+    """These cases shard over 8 devices (the CPU tier's virtual mesh)."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
 
 
 def _write_single_fast5(path, read_id, signal):

@@ -12,9 +12,10 @@ from strique_tpu.hmm.factor import FactoredHMM, apply_factored, factorize
 from strique_tpu.hmm.graph import HmmGraph
 from strique_tpu.hmm.models import build_flanked_repeat, build_repeat_mod
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
-MODEL_MOD = "/root/reference/models/r9_4_450bps_mCpG.model"
+MODEL = default_assets().model
+MODEL_MOD = default_assets().mod_model
 PREFIX = "CGGCAGCCGAACCCCAAACAGCCACCCGCCAGGATGCCGCCTCCTCACTCACC"
 SUFFIX = "TAGCGCGACTCCTGAGTTCCAGAGCTTGCTACAGGCTGCGGTTGTTTCCCACC"
 

@@ -14,8 +14,9 @@ import pytest
 from strique_tpu.hmm.models import build_flanked_repeat
 from strique_tpu.ops import viterbi as V
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
+MODEL = default_assets().model
 PREFIX = "CGGCAGCCGAACCCCAAACAGCCACCCGCCAGGATGCCGCCTCCTCACTCACC"
 SUFFIX = "TAGCGCGACTCCTGAGTTCCAGAGCTTGCTACAGGCTGCGGTTGTTTCCCACC"
 
@@ -93,56 +94,6 @@ def test_factored_scan_counts_exact(pm, chm):
         assert agree > 0.99, f"path agreement {agree:.4f} on read {i}"
 
 
-def test_factored_pallas_matches_factored_scan(pm, chm):
-    """Pallas factored forward must be BIT-IDENTICAL to the factored scan.
-
-    Both kernels perform the same f32 adds and order-independent
-    max/cummax reductions on the real lanes, so paths and (rescaled)
-    log-probabilities must agree exactly, not approximately.
-    """
-    from strique_tpu.ops.viterbi_pallas import CHUNK_T, PaddedHMM, viterbi_pallas_batch
-
-    counts = [7, 15]
-    obs, lens = _signals(pm, chm, counts)
-    T = ((obs.shape[1] + CHUNK_T - 1) // CHUNK_T) * CHUNK_T
-    obs = np.pad(obs, ((0, 0), (0, T - obs.shape[1])))
-    ph = PaddedHMM(chm)
-    assert ph.fspec is not None
-    logp_p, paths_p = viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), ph)
-    dev = _dev(chm)
-    spec, weights = V.stage_factored(chm.factored)
-    weights = tuple(map(jnp.asarray, weights))
-    logp_s, paths_s = V.viterbi_scan_factored_batch(
-        jnp.asarray(obs), jnp.asarray(lens), dev, spec, weights)
-    for i, n in enumerate(counts):
-        t = int(lens[i])
-        np.testing.assert_array_equal(np.asarray(paths_p)[i, :t],
-                                      np.asarray(paths_s)[i, :t])
-        assert np.isclose(float(logp_p[i]), float(logp_s[i]), rtol=1e-6)
-        assert V.count_repeats(np.asarray(paths_p[i]), t, chm) == n
-
-
-def test_factored_pallas_counts_match_dense_pallas(pm, chm):
-    """End-to-end decode parity: factored vs dense Pallas batch path."""
-    from strique_tpu.ops import viterbi_pallas as VP
-
-    counts = [4, 9, 13]
-    obs, lens = _signals(pm, chm, counts)
-    T = ((obs.shape[1] + VP.CHUNK_T - 1) // VP.CHUNK_T) * VP.CHUNK_T
-    obs = np.pad(obs, ((0, 0), (0, T - obs.shape[1])))
-    ph = VP.PaddedHMM(chm)
-    logp_f, paths_f = VP.viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), ph)
-    ph_dense = VP.PaddedHMM(chm)
-    ph_dense.fspec = None  # force the dense kernel
-    logp_d, paths_d = VP.viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), ph_dense)
-    for i, n in enumerate(counts):
-        t = int(lens[i])
-        cf = V.count_repeats(np.asarray(paths_f[i]), t, chm)
-        cd = V.count_repeats(np.asarray(paths_d[i]), t, chm)
-        assert cf == cd == n
-        assert np.isclose(float(logp_f[i]), float(logp_d[i]), rtol=1e-4)
-
-
 def test_factored_scan_noisy_counts(pm, chm):
     """Noisy signals: both kernels must still produce identical counts."""
     rng = np.random.default_rng(11)
@@ -163,3 +114,44 @@ def test_factored_scan_noisy_counts(pm, chm):
         cd = V.count_repeats(np.asarray(paths_d[i]), int(lens[i]), chm)
         cf = V.count_repeats(np.asarray(paths_f[i]), int(lens[i]), chm)
         assert cd == cf
+
+
+@pytest.mark.parametrize("kind", ["flanked", "mod"])
+def test_factored_scan_matches_dense_and_f64_oracle(pm, chm, kind):
+    """viterbi_scan_factored vs viterbi_scan vs the float64 viterbi_np: the
+    recompute-backward path is an optimum (its f64 log-p equals the
+    oracle's) and decodes the oracle's count / mod pattern."""
+    from strique_tpu.hmm.models import build_repeat_mod
+    from strique_tpu.ops.reference import viterbi_np
+
+    rng = np.random.default_rng(21)
+    if kind == "flanked":
+        model = chm
+        sigs = [pm.generate_signal(PREFIX + "GGCCCC" * n + SUFFIX, samples=6, noise=True,
+                                   rng=rng) for n in (4, 13)]
+    else:
+        pmm = PoreModel(default_assets().mod_model)
+        model = build_repeat_mod("GGCCCC", pm, pmm)
+        sigs = [g.generate_signal("GGCCCC" * 8, samples=6, noise=True, rng=rng)
+                for g in (pm, pmm)]
+    assert model.factored is not None
+    T = max(len(s) for s in sigs) + 19  # padding must not leak into the paths
+    obs = np.zeros((len(sigs), T), np.float32)
+    for i, s in enumerate(sigs):
+        obs[i, : len(s)] = s
+    lens = np.array([len(s) for s in sigs], np.int32)
+    dev = _dev(model)
+    spec, weights = V.stage_factored(model.factored)
+    _, paths_f = V.viterbi_scan_factored_batch(jnp.asarray(obs), jnp.asarray(lens), dev,
+                                               spec, tuple(map(jnp.asarray, weights)))
+    _, paths_d = V.viterbi_scan_batch(jnp.asarray(obs), jnp.asarray(lens), *dev)
+    decode = V.count_repeats if kind == "flanked" else V.mod_pattern
+    for i in range(len(sigs)):
+        t = int(lens[i])
+        pf, pd = np.asarray(paths_f[i]), np.asarray(paths_d[i])
+        lp_o, path_o = viterbi_np(obs[i, :t].astype(np.float64), model.log_start,
+                                  model.log_trans, model.log_end, model.mu, model.sigma,
+                                  model.is_uniform, model.log_uni)
+        assert decode(pf, t, model) == decode(pd, t, model) == decode(path_o, t, model)
+        assert abs(V.path_logp_f64(obs[i, :t], pf, model) - lp_o) <= 1e-6 * abs(lp_o)
+        assert np.all(pf[t:] == pf[t - 1])

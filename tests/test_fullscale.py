@@ -9,9 +9,10 @@ import pytest
 
 from strique_tpu.detect.counter import RepeatCounter
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
-ROWS = open("/root/reference/configs/repeat_config.tsv").read().strip().split("\n")
+MODEL = default_assets().model
+ROWS = open(default_assets().repeat_config).read().strip().split("\n")
 C9 = ROWS[1].split()
 FM = ROWS[2].split()
 

@@ -6,8 +6,9 @@ from strique_tpu.detect.counter import RepeatCounter
 from strique_tpu.ops import align as align_ops
 from strique_tpu.ops.bounds import nearest_positions
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
+MODEL = default_assets().model
 PREFIX = ("CGGCAGCCGAACCCCAAACAGCCACCCGCCAGGATGCCGCCTCCTCACT"
           "CACCCACTCGCCACCGCCTGCGCCTCCGCCGCCGCGGGCGCAGG")
 SUFFIX = ("TAGCGCGCGACTCCTGAGTTCCAGAGCTTGCTACAGGCTGCGGTTGTTT"

@@ -14,10 +14,14 @@ import sys
 import numpy as np
 import pytest
 
-DATA = "/root/reference/data"
-MODEL = "/root/reference/models/r9_4_450bps.model"
-REPEAT_TSV = "/root/reference/configs/repeat_config.tsv"
-PARAMS_JSON = "/root/reference/configs/STRique.json"
+# a checkout of the reference repository (its data/, models/ and configs/);
+# the bundled read and the r9.4 models are not redistributed with this repo
+REFERENCE = os.environ.get("STRIQUE_REFERENCE_DIR", "")
+DATA = os.path.join(REFERENCE, "data")
+MODEL = os.path.join(REFERENCE, "models", "r9_4_450bps.model")
+MOD_MODEL = os.path.join(REFERENCE, "models", "r9_4_450bps_mCpG.model")
+REPEAT_TSV = os.path.join(REFERENCE, "configs", "repeat_config.tsv")
+PARAMS_JSON = os.path.join(REFERENCE, "configs", "STRique.json")
 
 GOLDEN = {
     "ID": "ce47b364-ed6e-4409-808a-1041c0b5aac2",
@@ -34,6 +38,9 @@ GOLDEN = {
 
 @pytest.fixture(scope="module")
 def golden_dir(tmp_path_factory):
+    if not (REFERENCE and os.path.isfile(os.path.join(DATA, "c9orf72.fast5"))):
+        pytest.skip("needs the reference's bundled read data/c9orf72.fast5 and its r9.4 "
+                    "pore models (set STRIQUE_REFERENCE_DIR to a STRique checkout)")
     d = tmp_path_factory.mktemp("golden")
     shutil.copy(os.path.join(DATA, "c9orf72.fast5"), d)
     return d
@@ -112,7 +119,7 @@ def test_golden_count_pipeline_compat(golden_dir):
 # the reference's CI runs the golden count WITH --mod_model
 # (reference .travis.yml:102); the mod column on the bundled native-DNA
 # read is a deterministic per-repeat-unit 0/1 string.  Pinned from this
-# repo's kernels (bit-stable across CPU/TPU tiers): 734 units, 70 called
+# repo's kernels (bit-stable across device tiers): 734 units, 70 called
 # methylated (~9.5% — the GGCCCC unit junction carries one CpG).
 GOLDEN_MOD_LEN = 734
 GOLDEN_MOD_ONES = 70
@@ -138,7 +145,7 @@ def test_golden_count_pipeline_mod(golden_dir):
     rc = main(["count", str(fofn), MODEL, REPEAT_TSV,
                "--algn", os.path.join(DATA, "c9orf72.sam"),
                "--config", PARAMS_JSON,
-               "--mod_model", "/root/reference/models/r9_4_450bps_mCpG.model",
+               "--mod_model", MOD_MODEL,
                "--out", str(out), "--devices", "1"])
     assert rc == 0
     cols = out.read_text().strip().split("\n")[1].split("\t")
@@ -168,7 +175,7 @@ def test_golden_count_pipeline_mod_compat(golden_dir):
     rc = main(["count", str(fofn), MODEL, REPEAT_TSV,
                "--algn", os.path.join(DATA, "c9orf72.sam"),
                "--config", str(compat_json),
-               "--mod_model", "/root/reference/models/r9_4_450bps_mCpG.model",
+               "--mod_model", MOD_MODEL,
                "--out", str(out), "--devices", "1"])
     assert rc == 0
     cols = out.read_text().strip().split("\n")[1].split("\t")

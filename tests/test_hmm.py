@@ -6,8 +6,9 @@ from strique_tpu.hmm.graph import HmmGraph
 from strique_tpu.hmm.models import build_flanked_repeat, build_repeat_mod
 from strique_tpu.ops.reference import viterbi_np
 from strique_tpu.pore_model import PoreModel
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
+MODEL = default_assets().model
 
 
 def silent_aware_viterbi(g: HmmGraph, obs):
@@ -142,7 +143,7 @@ def test_flanked_short_repeat_offset():
 
 def test_mod_hmm_structure():
     pm = PoreModel(MODEL)
-    pm_mod = PoreModel("/root/reference/models/r9_4_450bps_mCpG.model")
+    pm_mod = PoreModel(default_assets().mod_model)
     chm = build_repeat_mod("GGCCCC", pm, pm_mod)
     assert chm.n_states == 2 * 12 + 2  # base + mod profiles + s0/e0
     assert chm.meta["anchor_states"].sum() == 2

@@ -10,8 +10,19 @@ import pytest
 from strique_tpu.io import fast5
 from strique_tpu.io.sam import SamRecord, decode_cigar, decode_sam, intersect_targets
 
-DATA_F5 = "/root/reference/data/c9orf72.fast5"
+# the reference's bundled read (data/ of a STRique checkout), not redistributed here
+REFERENCE = os.environ.get("STRIQUE_REFERENCE_DIR", "")
+DATA_F5 = os.path.join(REFERENCE, "data", "c9orf72.fast5")
 GOLD_ID = "ce47b364-ed6e-4409-808a-1041c0b5aac2"
+
+
+@pytest.fixture
+def real_read():
+    """Path of the reference's bundled read; skips when it is absent."""
+    if not (REFERENCE and os.path.isfile(DATA_F5)):
+        pytest.skip("needs the reference's bundled read data/c9orf72.fast5 "
+                    "(set STRIQUE_REFERENCE_DIR to a STRique checkout)")
+    return DATA_F5
 
 
 def make_single_f5(path, read_id, signal):
@@ -22,12 +33,12 @@ def make_single_f5(path, read_id, signal):
         g.create_dataset("Signal", data=signal.astype(np.int16))
 
 
-def test_read_id_single():
+def test_read_id_single(real_read):
     assert fast5.read_id_single(DATA_F5) == GOLD_ID
     assert not fast5.is_multi_read(DATA_F5)
 
 
-def test_index_and_get_raw(tmp_path):
+def test_index_and_get_raw(tmp_path, real_read):
     shutil.copy(DATA_F5, tmp_path)
     lines = list(fast5.index(str(tmp_path)))
     assert lines == [f"c9orf72.fast5\t{GOLD_ID}"]
@@ -116,8 +127,9 @@ def test_decode_cigar():
     assert decode_cigar("2S10M1D3I") == [(2, "S"), (10, "M"), (1, "D"), (3, "I")]
 
 
-def test_decode_sam_golden_line():
-    line = next(l for l in open("/root/reference/data/c9orf72.sam") if not l.startswith("@"))
+def test_decode_sam_golden_line(real_read):
+    sam = os.path.join(os.path.dirname(real_read), "c9orf72.sam")
+    line = next(l for l in open(sam) if not l.startswith("@"))
     sr = decode_sam(line)
     assert sr.QNAME == GOLD_ID
     assert sr.FLAG == 16 and sr.strand == "-"
@@ -215,7 +227,7 @@ def test_ont_shaped_bulk_reads_and_converts(tmp_path):
             assert f["UniqueGlobalKey/tracking_id"].attrs["run_id"] == b"run0001"
 
 
-def test_singles_to_multi_ont_layout(tmp_path):
+def test_singles_to_multi_ont_layout(tmp_path, real_read):
     """single -> multi emits ont_fast5_api's layout; real reference read
     round-trips both directions."""
     bulk = tmp_path / "packed.fast5"

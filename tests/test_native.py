@@ -5,10 +5,11 @@ import pytest
 from strique_tpu import native
 from strique_tpu.ops.reference import AlignParams, detect_range_np
 from strique_tpu.pore_model import PoreModel, mean_abs_dev
+from strique_tpu.synthetic import default_assets
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="native lib not built")
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
+MODEL = default_assets().model
 
 
 def test_native_preprocess_matches_numpy():

@@ -1,26 +1,23 @@
 """Randomized end-to-end parity: production pipeline vs the f64 oracle.
 
-The oracle engine (tools/adjudicate_ragged.py::oracle_detect) shares no
+The oracle engine (ops/reference.py::detect_np) shares no
 kernel code with the production path: NumPy preprocessing, full-matrix
 float64 affine DP with SeqAn view-position semantics
 (ops/reference.py::detect_range_np), dense float64 Viterbi (viterbi_np).
-Agreement on randomized noisy reads pins the whole TPU pipeline — prep,
+Agreement on randomized noisy reads pins the whole device pipeline — prep,
 alignment, bounds, gate, Viterbi, count decode — against an independent
 implementation of the reference's math (reference STRique.py:581-616).
 """
-import sys
-
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
-
 from strique_tpu.detect.counter import RepeatCounter, reverse_complement
+from strique_tpu.ops.reference import detect_np as oracle_detect
 from strique_tpu.pore_model import PoreModel
-from tools.adjudicate_ragged import oracle_detect
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
-ROW = open("/root/reference/configs/repeat_config.tsv").read().strip().split("\n")[1].split()
+MODEL = default_assets().model
+ROW = open(default_assets().repeat_config).read().strip().split("\n")[1].split()
 REPEAT, PREFIX, SUFFIX = ROW[4], ROW[5], ROW[6]
 
 

@@ -3,9 +3,10 @@ import numpy as np
 import pytest
 
 from strique_tpu.pore_model import PoreModel, mean_abs_dev
+from strique_tpu.synthetic import default_assets
 
-MODEL = "/root/reference/models/r9_4_450bps.model"
-MOD_MODEL = "/root/reference/models/r9_4_450bps_mCpG.model"
+MODEL = default_assets().model
+MOD_MODEL = default_assets().mod_model
 
 
 @pytest.fixture(scope="module")

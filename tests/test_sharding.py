@@ -13,8 +13,13 @@ from strique_tpu.ops.reference import AlignParams
 from strique_tpu.ops.viterbi import viterbi_scan
 from strique_tpu.parallel.experimental import sharded_viterbi
 from strique_tpu.parallel.mesh import batched_align, make_mesh
+from strique_tpu.synthetic import default_assets
 
-pytestmark = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.fixture(autouse=True)
+def eight_devices():
+    """These cases shard over 8 devices (the CPU tier's virtual mesh)."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
 
 
 def test_mesh_construction():
@@ -67,8 +72,8 @@ def test_counter_with_mesh_matches_single_device():
     from strique_tpu.detect.counter import RepeatCounter
     from strique_tpu.pore_model import PoreModel
 
-    MODEL = "/root/reference/models/r9_4_450bps.model"
-    row = open("/root/reference/configs/repeat_config.tsv").read().strip().split("\n")[1].split()
+    MODEL = default_assets().model
+    row = open(default_assets().repeat_config).read().strip().split("\n")[1].split()
     repeat, prefix, suffix = row[4], row[5], row[6]
     pm = PoreModel(MODEL)
     rng = np.random.default_rng(3)

@@ -6,103 +6,47 @@ from the inserted repeat number, re-derives the result with the
 independent float64 oracle chain — exact NumPy preprocessing, the
 full-matrix float64 DP with SeqAn view-position semantics
 (ops/reference.py::detect_range_np) and the dense float64 Viterbi
-(ops/reference.py::viterbi_np).  Verdicts:
+(ops/reference.py::viterbi_np), chained in ops/reference.py::detect_np.
+Verdicts:
 
   * oracle count == kernel count != inserted n  ->  the miss is
     model-inherent (the true Viterbi optimum of the noisy signal), not a
     kernel defect;
   * oracle count != kernel count                ->  kernel bug: fix it.
 
-Usage: python tools/adjudicate_ragged.py  (TPU or CPU; TPU is faster)
+Usage: python tools/adjudicate_ragged.py  (any backend; the GPU is faster)
 """
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import numpy as np
-
 
 def build_ragged_reads():
-    """Rebuild bench.py's ragged phase read set, seeds and all."""
-    import random
-
-    from bench import MODEL_FILE, PREFIX, SUFFIX
-    from strique_tpu.detect.counter import reverse_complement
+    """Rebuild bench.py's ragged read set (same seeds, same draw order)."""
+    import bench
     from strique_tpu.pore_model import PoreModel
+    from strique_tpu.synthetic import default_assets
 
-    pm = PoreModel(MODEL_FILE)
-    rng = np.random.default_rng(1234)
-    # the uniform phase consumes rng draws first; replicate without the cost
-    backbone = "".join(rng.choice(list("ACTG"), 2000))
-    seq = backbone[:1000] + PREFIX + "GGCCCC" * 100 + SUFFIX + backbone[-1000:]
-    n_warm = int(os.environ.get("BENCH_BATCH", "64"))
-    n_reads = int(os.environ.get("BENCH_READS", "128"))
-    for _ in range(n_warm + n_reads):
-        pm.generate_signal(seq, samples=8, noise=True, rng=rng)
-
+    assets = default_assets()
+    pm = PoreModel(assets.model)
+    n_uniform = int(os.environ.get("BENCH_BATCH", "64")) + int(os.environ.get("BENCH_READS", "128"))
     n_ragged = int(os.environ.get("BENCH_RAGGED_READS", "192"))
-    ragged = []
-    for i in range(n_ragged):
-        nrep = (50, 100, 150)[i % 3]
-        bb_n = int(rng.choice((500, 2000, 6000)))
-        bb = "".join(rng.choice(list("ACTG"), max(2 * bb_n, 2)))
-        rseq = bb[:bb_n] + PREFIX + "GGCCCC" * nrep + SUFFIX + bb[-bb_n:]
-        strand = "+" if i % 2 == 0 else "-"
-        if strand == "-":
-            rseq = reverse_complement(rseq)
-        ragged.append((strand, nrep,
-                       pm.generate_signal(rseq, samples=8, noise=True, rng=rng)))
-    random.Random(5).shuffle(ragged)
-    return pm, ragged
-
-
-def oracle_detect(pm, tc, raw):
-    """Float64 oracle for one read: preprocessing -> DP bounds -> Viterbi.
-
-    Mirrors counter.detect semantics (reference STRique.py:581-616) with
-    zero shared kernel code: full-matrix f64 DP + dense f64 Viterbi.
-    """
-    from strique_tpu.ops import signal as signal_ops
-    from strique_tpu.ops.reference import AlignParams, detect_range_np, viterbi_np
-    from strique_tpu.ops.viterbi import count_repeats
-    from strique_tpu.pore_model import mean_abs_dev
-
-    raw = np.asarray(raw, np.float64)
-    flt = signal_ops.medfilt3(raw)
-    morph = signal_ops.quantize_morph_np(flt, float(np.median(flt)), mean_abs_dev(flt))
-    morph = signal_ops.open_close_np(morph)
-    morph = pm.normalize2model(morph, mode="minmax")
-    flt = pm.normalize2model(flt, mode="minmax")
-
-    params = AlignParams()
-    trim_prefix = len(tc.prefix_ext) - len(tc.prefix)
-    trim_suffix = len(tc.suffix_ext) - len(tc.suffix)
-    sp, prefix_begin, prefix_end = detect_range_np(
-        morph, np.asarray(tc.prefix_ext, np.float64), params, pre_trim=trim_prefix)
-    ss, suffix_begin, suffix_end = detect_range_np(
-        morph, np.asarray(tc.suffix_ext, np.float64), params, post_trim=trim_suffix)
-    if not (prefix_begin < suffix_end and sp > 0 and ss > 0):
-        return 0, sp, ss
-    chm = tc.repeat_hmm
-    seg = flt[prefix_begin:suffix_end]
-    _, path = viterbi_np(seg, chm.log_start, chm.log_trans, chm.log_end,
-                         chm.mu, chm.sigma, chm.is_uniform, chm.log_uni)
-    return count_repeats(path, len(seg), chm), sp, ss
+    w = bench.build_workloads(pm, PoreModel(assets.mod_model), n_uniform, n_ragged, 1)
+    return pm, w["ragged"]
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/strique_tpu_cache"))
-    from bench import MODEL_FILE, PREFIX, SUFFIX
+    from strique_tpu import platform
     from strique_tpu.detect.counter import RepeatCounter
     from strique_tpu.detect.stream import StreamScheduler
+    from strique_tpu.ops.reference import detect_np
+    from strique_tpu.synthetic import default_assets
 
+    platform.enable_compile_cache()
     pm, ragged = build_ragged_reads()
-    counter = RepeatCounter(MODEL_FILE)
-    counter.add_target("c9orf72", "GGCCCC", PREFIX, SUFFIX)
+    counter = RepeatCounter(default_assets().model)
+    counter.add_target("c9orf72", *default_assets().row()[4:7])
 
     res = {}
     sched = StreamScheduler(counter, lambda ctx, out: res.__setitem__(ctx, out),
@@ -119,7 +63,7 @@ def main():
         strand, nrep, sig = ragged[i]
         got = None if res.get(i) is None else res[i][0]
         tc = counter.targets["c9orf72"][0 if strand == "+" else 1]
-        oc, sp, ss = oracle_detect(pm, tc, sig)
+        oc, sp, ss = detect_np(pm, tc, sig)
         verdict = ("MODEL-INHERENT (oracle agrees with kernel)" if oc == got
                    else "KERNEL BUG (oracle disagrees)")
         print(f"read {i}: strand={strand} inserted={nrep} kernel={got} "

@@ -40,12 +40,14 @@ for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
 
 import numpy as np
 
-from bench import MODEL_FILE, PREFIX, SUFFIX
 from strique_tpu import native as native_lib
 from strique_tpu.hmm.models import build_flanked_repeat
 from strique_tpu.ops import signal as signal_ops
 from strique_tpu.ops.reference import AlignParams, semiglobal_align_np, viterbi_np
 from strique_tpu.pore_model import PoreModel, mean_abs_dev
+from strique_tpu.synthetic import C9_PREFIX as PREFIX
+from strique_tpu.synthetic import C9_SUFFIX as SUFFIX
+from strique_tpu.synthetic import default_assets
 
 SEQAN_CREDIT = 4.0  # assumed max SeqAn AVX2 advantage over our scalar C++ DP
 
@@ -53,7 +55,7 @@ SEQAN_CREDIT = 4.0  # assumed max SeqAn AVX2 advantage over our scalar C++ DP
 def main():
     repeats = 100
     n_reads = int(os.environ.get("BASELINE_READS", "4"))
-    pm = PoreModel(MODEL_FILE)
+    pm = PoreModel(default_assets().model)
     rng = np.random.default_rng(1234)
     backbone = "".join(rng.choice(list("ACTG"), 2000))
     seq = backbone[:1000] + PREFIX + "GGCCCC" * repeats + SUFFIX + backbone[-1000:]

@@ -6,7 +6,7 @@ detect_finish (D2H wait + host decode) call, printing per-batch
 (target, strand, B, bucket, submit_ms, finish_ms) and the phase totals.
 Directs where the ragged wall time actually goes.
 
-Usage: python tools/profile_ragged.py   (real TPU)
+Usage: python tools/profile_ragged.py   (on the GPU)
 """
 import os
 import sys
@@ -18,18 +18,16 @@ import numpy as np
 
 
 def main():
-    import jax
-
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR", "/tmp/strique_tpu_cache"))
-    from bench import MODEL_FILE, PREFIX, SUFFIX
+    from strique_tpu import platform
     from strique_tpu.detect.counter import RepeatCounter, signal_bucket
     from strique_tpu.detect.stream import StreamScheduler
+    from strique_tpu.synthetic import default_assets
     from tools.adjudicate_ragged import build_ragged_reads
 
+    platform.enable_compile_cache()
     pm, ragged = build_ragged_reads()
-    counter = RepeatCounter(MODEL_FILE)
-    counter.add_target("c9orf72", "GGCCCC", PREFIX, SUFFIX)
+    counter = RepeatCounter(default_assets().model)
+    counter.add_target("c9orf72", *default_assets().row()[4:7])
 
     events = []
     orig_submit = counter.detect_submit
